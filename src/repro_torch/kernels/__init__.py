@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels for Hopper (+ their plain PyTorch versions).
+
+``csrc/<name>.cu`` holds each kernel and its C entry point, ``_build.py``
+compiles and loads them, ``ops.py`` the public wrappers (impl dispatch,
+checks, launch counts) and ``ref.py`` the plain versions.
+"""
+from repro_torch.kernels.ops import downsample2x2, jpeg_transform  # noqa: F401

@@ -58,3 +58,8 @@ def _racedep_armed(request):
             pytest.fail(
                 f"racedep: {len(violations)} data race(s) during test:\n"
                 f"{lines}", pytrace=False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips where none is present)")
