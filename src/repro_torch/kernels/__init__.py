@@ -4,4 +4,6 @@
 compiles and loads them, ``ops.py`` the public wrappers (impl dispatch,
 checks, launch counts) and ``ref.py`` the plain versions.
 """
-from repro_torch.kernels.ops import downsample2x2, jpeg_transform  # noqa: F401
+from repro_torch.kernels.ops import (dct8x8_quant,  # noqa: F401
+                                     downsample2x2, entropy_decode,
+                                     jpeg_inverse, jpeg_transform, rgb2ycbcr)

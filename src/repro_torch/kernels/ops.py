@@ -6,7 +6,7 @@
   (``csrc/*.cu``); a CPU tensor runs the plain PyTorch version in
   ``ref.py``. The choice follows the tensor's device only: on a CUDA tensor
   the wrapper launches the kernel or raises, and never falls back. On
-  either device ``auto`` takes only what the kernel takes (float32,
+  either device ``auto`` takes only what the kernel takes (its dtype,
   contiguous), so a CPU run fails where the card would.
 - ``"ref"`` — the plain version on whatever device the tensor is on (the
   tests and ``chip_smoke.py`` compare kernels against it).
@@ -21,17 +21,20 @@ size is one launch at its own shape.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
-__all__ = ["jpeg_transform", "downsample2x2"]
+__all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
+           "dct8x8_quant", "entropy_decode"]
 
 
-def _launches_kernel(x: torch.Tensor, name: str, ndim: int,
-                     impl: str) -> bool:
+def _launches_kernel(x: torch.Tensor, name: str, ndim: int, impl: str,
+                     dtype: torch.dtype = torch.float32) -> bool:
     """Whether this call launches the kernel (``auto`` on a CUDA tensor).
 
     For ``auto`` it first checks the kernel's input contract on any device.
@@ -40,8 +43,8 @@ def _launches_kernel(x: torch.Tensor, name: str, ndim: int,
         return False
     if impl != "auto":
         raise ValueError(f"impl must be 'auto' or 'ref': {impl!r}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got "
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got "
                         f"{x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{name}: expected a {ndim}-d tensor, got shape "
@@ -49,6 +52,47 @@ def _launches_kernel(x: torch.Tensor, name: str, ndim: int,
     if not x.is_contiguous():
         raise ValueError(f"{name}: the CUDA kernel takes a contiguous tensor")
     return x.is_cuda
+
+
+def _check_blocks(x: torch.Tensor, name: str, what: str) -> None:
+    """(N, 3, H, W) with H and W multiples of 8."""
+    if x.dim() != 4 or x.shape[1] != 3 or x.shape[2] % 8 or x.shape[3] % 8:
+        raise ValueError(f"{name}: expected (N, 3, H, W) {what} with H, W "
+                         f"multiples of 8, got {tuple(x.shape)}")
+
+
+def _frozen(a: np.ndarray) -> np.ndarray:
+    a.flags.writeable = False
+    return a
+
+
+# The kernels' by-value host operands, built once so that a call's host
+# work is its launch (the per-tile path calls these kernels per tile).
+@lru_cache(maxsize=None)
+def _host_dct() -> np.ndarray:
+    """The (8, 8) float32 DCT matrix the transform kernels take by value."""
+    return _frozen(np.array(ref.dct_matrix(), np.float32))
+
+
+@lru_cache(maxsize=None)
+def _host_default_tables() -> np.ndarray:
+    """The (3, 8, 8) Annex-K tables for Y, Cb and Cr."""
+    return _frozen(ref.quant_tables(None, None, "cpu").numpy().copy())
+
+
+@lru_cache(maxsize=None)
+def _host_zigzag() -> np.ndarray:
+    return _frozen(np.array(ref.ZIGZAG, np.int64))
+
+
+def _host_tables(qluma, qchroma) -> np.ndarray:
+    if qluma is None and qchroma is None:
+        return _host_default_tables()
+    return ref.quant_tables(qluma, qchroma, "cpu").numpy()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _raise_on_error(err: int, name: str) -> None:
@@ -68,22 +112,18 @@ def jpeg_transform(tiles: torch.Tensor, qluma=None, qchroma=None,
     nothing and returns an empty int32 tensor. ``qluma``/``qchroma`` default
     to the Annex-K tables.
     """
-    if tiles.dim() != 4 or tiles.shape[1] != 3 or tiles.shape[2] % 8 \
-            or tiles.shape[3] % 8:
-        raise ValueError("jpeg_transform: expected (N, 3, H, W) tiles with "
-                         f"H, W multiples of 8, got {tuple(tiles.shape)}")
+    _check_blocks(tiles, "jpeg_transform", "tiles")
     if not _launches_kernel(tiles, "jpeg_transform", 4, impl):
         return ref.jpeg_transform_ref(tiles, qluma, qchroma)
     N, _, H, W = tiles.shape
     out = torch.empty(tiles.shape, dtype=torch.int32, device=tiles.device)
     if N == 0:
         return out
-    C = np.ascontiguousarray(ref.dct_matrix(), np.float32)
-    q = ref.quant_tables(qluma, qchroma, "cpu").numpy()
+    C, q = _host_dct(), _host_tables(qluma, qchroma)
     with torch.cuda.device(tiles.device):
         err = library("jpeg_transform")(
             tiles.data_ptr(), out.data_ptr(), N, H, W, C.ctypes.data,
-            q.ctypes.data, torch.cuda.current_stream().cuda_stream)
+            q.ctypes.data, _stream())
     _raise_on_error(err, "jpeg_transform")
     jpeg_transform.launches += 1
     return out
@@ -110,11 +150,157 @@ def downsample2x2(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
         return out
     with torch.cuda.device(img.device):
         err = library("downsample2x2")(
-            img.data_ptr(), out.data_ptr(), C, H, W,
-            torch.cuda.current_stream().cuda_stream)
+            img.data_ptr(), out.data_ptr(), C, H, W, _stream())
     _raise_on_error(err, "downsample2x2")
     downsample2x2.launches += 1
     return out
 
 
 downsample2x2.launches = 0
+
+
+def jpeg_inverse(coef: torch.Tensor, qluma=None, qchroma=None,
+                 impl: str = "auto") -> torch.Tensor:
+    """(N, 3, H, W) int32 quantized YCbCr DCT coefs → (N, 3, H, W) uint8 RGB.
+
+    The whole-level inverse dispatch: one launch decode-transforms every
+    tile of a stored level (dequantize with the luma table for Y and the
+    chroma table for Cb/Cr, 8×8 iDCT, YCbCr → RGB, ``clip(round(·))``).
+    H and W must be multiples of 8; ``N == 0`` launches nothing.
+    ``qluma``/``qchroma`` default to the Annex-K tables.
+    """
+    _check_blocks(coef, "jpeg_inverse", "coefficients")
+    if not _launches_kernel(coef, "jpeg_inverse", 4, impl, torch.int32):
+        return ref.jpeg_inverse_ref(coef, qluma, qchroma)
+    N, _, H, W = coef.shape
+    out = torch.empty(coef.shape, dtype=torch.uint8, device=coef.device)
+    if N == 0:
+        return out
+    C, q = _host_dct(), _host_tables(qluma, qchroma)
+    with torch.cuda.device(coef.device):
+        err = library("jpeg_inverse")(
+            coef.data_ptr(), out.data_ptr(), N, H, W, C.ctypes.data,
+            q.ctypes.data, _stream())
+    _raise_on_error(err, "jpeg_inverse")
+    jpeg_inverse.launches += 1
+    return out
+
+
+jpeg_inverse.launches = 0
+
+
+def rgb2ycbcr(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """(3, H, W) RGB → (3, H, W) float32 level-shifted Y, Cb, Cr planes.
+
+    The per-tile path's colour conversion (one launch per tile).
+    """
+    if img.dim() != 3 or img.shape[0] != 3:
+        raise ValueError("rgb2ycbcr: expected a (3, H, W) image, got "
+                         f"{tuple(img.shape)}")
+    if not _launches_kernel(img, "rgb2ycbcr", 3, impl):
+        return ref.rgb2ycbcr_ref(img)
+    _, H, W = img.shape
+    out = torch.empty(img.shape, dtype=torch.float32, device=img.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(img.device):
+        err = library("rgb2ycbcr")(img.data_ptr(), out.data_ptr(), H, W,
+                                   _stream())
+    _raise_on_error(err, "rgb2ycbcr")
+    rgb2ycbcr.launches += 1
+    return out
+
+
+rgb2ycbcr.launches = 0
+
+
+def dct8x8_quant(plane: torch.Tensor, qtable=None,
+                 impl: str = "auto") -> torch.Tensor:
+    """(H, W) float32 level-shifted plane → (H, W) int32 quantized DCT coefs.
+
+    The per-tile path's transform, one launch per channel of a tile: 8×8
+    DCT-II and ``round(y / q)``, blocks in place. H and W must be multiples
+    of 8; ``qtable`` (8, 8) defaults to the Annex-K luma table.
+    """
+    if plane.dim() != 2 or plane.shape[0] % 8 or plane.shape[1] % 8:
+        raise ValueError("dct8x8_quant: expected an (H, W) plane with H, W "
+                         f"multiples of 8, got {tuple(plane.shape)}")
+    if not _launches_kernel(plane, "dct8x8_quant", 2, impl):
+        return ref.dct8x8_quant_ref(plane, qtable)
+    H, W = plane.shape
+    out = torch.empty(plane.shape, dtype=torch.int32, device=plane.device)
+    if out.numel() == 0:
+        return out
+    C = _host_dct()
+    q = _host_default_tables()[0] if qtable is None else \
+        np.ascontiguousarray(qtable, np.float32)
+    with torch.cuda.device(plane.device):
+        err = library("dct8x8_quant")(
+            plane.data_ptr(), out.data_ptr(), H, W, C.ctypes.data,
+            q.ctypes.data, _stream())
+    _raise_on_error(err, "dct8x8_quant")
+    dct8x8_quant.launches += 1
+    return out
+
+
+dct8x8_quant.launches = 0
+
+
+def entropy_decode(buf: torch.Tensor, offs: torch.Tensor,
+                   nbits: torch.Tensor, lut: torch.Tensor, H: int, W: int,
+                   impl: str = "auto"):
+    """Huffman-decode N tile scans → ``(coef, stop, err_kind)``.
+
+    buf (B,) uint8, offs (N,) int64, nbits (N,) int32 and lut (4·65536,)
+    int16, all on one device, as :func:`ref.entropy_decode_ref` documents
+    (each scan followed by at least 8 zero bytes). One launch decodes every
+    tile of a level, one thread per tile, into (N, 3, H, W) int32
+    coefficients (blocks in place, DC integrated); each lane reports the
+    index of the symbol at which it stopped (its last, or its first
+    failing one) and the failure's kind (0 when it decoded cleanly). The
+    caller turns those into the reference's error.
+    """
+    if H <= 0 or W <= 0 or H % 8 or W % 8:
+        raise ValueError(f"entropy_decode: tile {H}x{W} is not a positive "
+                         "multiple of 8")
+    for t, name, dtype in ((offs, "offs", torch.int64),
+                           (nbits, "nbits", torch.int32),
+                           (lut, "lut", torch.int16)):
+        if t.dtype != dtype or t.dim() != 1 or t.device != buf.device:
+            raise ValueError(f"entropy_decode: {name} must be a 1-d {dtype} "
+                             f"tensor on {buf.device}")
+    if offs.numel() != nbits.numel() or lut.numel() != 4 * 65536:
+        raise ValueError("entropy_decode: offs/nbits lengths differ or the "
+                         "lut is not 4 x 65536 entries")
+    # every scan and its 8 guard bytes must lie inside buf: a lane reads up
+    # to 8 bytes past a cursor that is still inside its scan (one read-back
+    # of three numbers: a single wait on a CUDA tensor)
+    if offs.numel():
+        lo_off, lo_bits, hi_end = torch.stack((
+            offs.min(), nbits.min().long(),
+            (offs + (nbits.long() + 7) // 8 + 8).max())).tolist()
+        if lo_off < 0 or lo_bits < 0 or hi_end > buf.numel():
+            raise ValueError("entropy_decode: a scan and its 8 guard bytes "
+                             "do not fit inside buf")
+    if not _launches_kernel(buf, "entropy_decode", 1, impl, torch.uint8):
+        return ref.entropy_decode_ref(buf, offs, nbits, lut, H, W)
+    N = offs.numel()
+    dev = buf.device
+    coef = torch.zeros((N, 3, H, W), dtype=torch.int32, device=dev)
+    stop = torch.empty(N, dtype=torch.int32, device=dev)
+    err_kind = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return coef, stop, err_kind
+    offs, nbits, lut = (t.contiguous() for t in (offs, nbits, lut))
+    zz = _host_zigzag()
+    with torch.cuda.device(dev):
+        err = library("entropy_decode")(
+            buf.data_ptr(), offs.data_ptr(), nbits.data_ptr(),
+            lut.data_ptr(), coef.data_ptr(), stop.data_ptr(),
+            err_kind.data_ptr(), N, H, W, zz.ctypes.data, _stream())
+    _raise_on_error(err, "entropy_decode")
+    entropy_decode.launches += 1
+    return coef, stop, err_kind
+
+
+entropy_decode.launches = 0

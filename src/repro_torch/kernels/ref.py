@@ -16,13 +16,26 @@ Bit-exactness rules (DESIGN.md "Bit-exactness contract", carried over):
   left to right — exactly the loop the CUDA kernel runs, so kernel and
   plain version agree bit for bit on any input;
 * ``C`` is the numpy-built :func:`dct_matrix`, never recomputed with a
-  float32 cosine, and quantization is ``round_half_even(y / q)``.
+  float32 cosine, and quantization is ``round_half_even(y / q)``;
+* the inverse transform mirrors all three: dequantize, the row pass
+  ``T = Cᵀ·X`` and the column pass ``Y = T·C`` as fixed-order 8-term sums,
+  then the inverse polynomials (:func:`ycbcr_inverse_polynomials`) and
+  ``clip(round_half_even(·), 0, 255)``.
 
 The JAX reference sums the DCT in an order its backend picks, so on
 adversarial content (uniform noise) a last-ULP difference can flip a
 quotient that sits exactly at a rounding tie: measured 2 coefficients in
 12.58M off by ±1, each at ``|frac(y/q)| − 0.5`` below 1e-6 (ROADMAP,
-Queue C). On slide content the two agree exactly.
+Queue C). The inverse transform has the same hazard at the pixel round
+(no summation order reproduces XLA's float iDCT bit for bit): on the
+coefficients of uniform noise a few samples in 10⁵ sit within ~3e-5 of a
+.5 tie and come out ±1; on slide content the two agree exactly.
+
+:func:`entropy_decode_ref` is the plain version of the one integer kernel,
+the Huffman decoder: a lockstep transliteration of
+``repro.wsi.entropy_jax._lockstep`` that advances every tile's scan by one
+symbol per step, keeps each lane's first failure, and writes the
+coefficients in place exactly as the per-lane CUDA kernel does.
 """
 from __future__ import annotations
 
@@ -30,9 +43,12 @@ import numpy as np
 import torch
 
 __all__ = [
-    "JPEG_LUMA_Q", "JPEG_CHROMA_Q", "dct_matrix", "ycbcr_polynomials",
-    "quant_tables", "jpeg_quotient_ref", "jpeg_transform_ref",
-    "downsample2x2_ref", "downsample2x2_q_ref",
+    "JPEG_LUMA_Q", "JPEG_CHROMA_Q", "ZIGZAG", "dct_matrix",
+    "ycbcr_polynomials", "ycbcr_inverse_polynomials", "quant_tables",
+    "rgb2ycbcr_ref", "dct8x8_quant_ref", "jpeg_quotient_ref",
+    "jpeg_transform_ref", "idct_dequant_blocks", "jpeg_inverse_ref",
+    "downsample2x2_ref", "downsample2x2_q_ref", "entropy_decode_ref",
+    "ERR_INVALID", "ERR_RUN", "ERR_TRUNC",
 ]
 
 # ITU-T81 Annex K quantization tables (quality 50)
@@ -59,6 +75,16 @@ JPEG_CHROMA_Q = np.array([
 ], np.float32)
 
 
+#: zigzag scan order: slot z of a block's symbol stream holds the
+#: coefficient at row-major position ``ZIGZAG[z]`` of its 8×8 block
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+])
+
+
 def dct_matrix() -> np.ndarray:
     """Orthonormal 8×8 DCT-II matrix C (DCT: C·X·Cᵀ), built in numpy."""
     k = np.arange(8)
@@ -80,6 +106,20 @@ def ycbcr_polynomials(r, g, b):
     cb = -0.168736 * r - 0.331264 * g + 0.5 * b
     cr = 0.5 * r - 0.418688 * g - 0.081312 * b
     return y, cb, cr
+
+
+def ycbcr_inverse_polynomials(y, cb, cr):
+    """The single copy of the inverse (level-unshifted) YCbCr→RGB polynomials.
+
+    Same expressions, same order, as
+    ``repro.kernels.ref.ycbcr_inverse_polynomials``;
+    ``csrc/jpeg_inverse.cu`` restates these terms one for one.
+    """
+    y = y + 128.0
+    r = y + 1.402 * cr
+    g = y - 0.344136 * cb - 0.714136 * cr
+    b = y + 1.772 * cb
+    return r, g, b
 
 
 def quant_tables(qluma, qchroma, device) -> torch.Tensor:
@@ -108,6 +148,39 @@ def _fixed_order_dct(blocks: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _blocks(planes: torch.Tensor) -> torch.Tensor:
+    """(…, H, W) → (…, H/8, W/8, 8, 8) blocks (a view)."""
+    *lead, H, W = planes.shape
+    return planes.reshape(*lead, H // 8, 8, W // 8, 8).transpose(-3, -2)
+
+
+def _unblocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_blocks`: (…, bh, bw, 8, 8) → (…, H, W)."""
+    *lead, bh, bw, _, _ = blocks.shape
+    return blocks.transpose(-3, -2).reshape(*lead, bh * 8, bw * 8)
+
+
+def rgb2ycbcr_ref(img) -> torch.Tensor:
+    """(3, H, W) RGB → (3, H, W) float32 level-shifted Y, Cb, Cr planes."""
+    x = img.to(torch.float32)
+    return torch.stack(ycbcr_polynomials(x[0], x[1], x[2]))
+
+
+def dct8x8_quant_ref(plane, qtable=None) -> torch.Tensor:
+    """(H, W) level-shifted plane → (H, W) int32 ``round(DCT(X) / Q)``.
+
+    Blocks in place; the per-tile path's transform. Same fixed-order DCT as
+    :func:`jpeg_transform_ref`, so a tile's per-tile coefficients equal its
+    batched ones bit for bit. ``qtable`` defaults to the luma table.
+    """
+    x = plane.to(torch.float32)
+    C = torch.from_numpy(dct_matrix()).to(x.device)
+    q = torch.from_numpy(np.asarray(
+        JPEG_LUMA_Q if qtable is None else qtable, np.float32)).to(x.device)
+    return torch.round(_unblocks(_fixed_order_dct(_blocks(x), C) / q)).to(
+        torch.int32)
+
+
 def jpeg_quotient_ref(tiles, qluma=None, qchroma=None) -> torch.Tensor:
     """(N, 3, T, T) RGB → (N, 3, T, T) float32 ``DCT(YCbCr) / Q``.
 
@@ -116,13 +189,11 @@ def jpeg_quotient_ref(tiles, qluma=None, qchroma=None) -> torch.Tensor:
     (a quotient within 1e-5 of ``k + 0.5``) from a real disagreement.
     """
     x = tiles.to(torch.float32)
-    N, _, H, W = x.shape
     C = torch.from_numpy(dct_matrix()).to(x.device)
     q = quant_tables(qluma, qchroma, x.device)
     planes = torch.stack(ycbcr_polynomials(x[:, 0], x[:, 1], x[:, 2]), 1)
-    blocks = planes.reshape(N, 3, H // 8, 8, W // 8, 8).transpose(3, 4)
-    y = _fixed_order_dct(blocks, C) / q[None, :, None, None]
-    return y.transpose(3, 4).reshape(N, 3, H, W)
+    y = _fixed_order_dct(_blocks(planes), C) / q[None, :, None, None]
+    return _unblocks(y)
 
 
 def jpeg_transform_ref(tiles, qluma=None, qchroma=None) -> torch.Tensor:
@@ -134,6 +205,40 @@ def jpeg_transform_ref(tiles, qluma=None, qchroma=None) -> torch.Tensor:
     """
     return torch.round(jpeg_quotient_ref(tiles, qluma, qchroma)).to(
         torch.int32)
+
+
+def idct_dequant_blocks(xb, q, C) -> torch.Tensor:
+    """(…, 8, 8) quantized blocks → (…, 8, 8) spatial samples (float32).
+
+    Dequantize (``X·Q``, exact for in-range coefficients), then the row
+    pass ``T[i,k] = Σ_j C[j,i]·X[j,k]`` and the column pass
+    ``Y[i,l] = Σ_k T[i,k]·C[k,l]``, each accumulated from the first product
+    on, j (or k) = 0..7 — the loop ``csrc/jpeg_inverse.cu`` runs.
+    """
+    x = xb.to(torch.float32) * q
+    t = C[0, :, None] * x[..., 0, None, :]
+    for j in range(1, 8):
+        t = t + C[j, :, None] * x[..., j, None, :]
+    y = t[..., :, 0, None] * C[0, :]
+    for k in range(1, 8):
+        y = y + t[..., :, k, None] * C[k, :]
+    return y
+
+
+def jpeg_inverse_ref(coef, qluma=None, qchroma=None) -> torch.Tensor:
+    """Plain version of the fused whole-level inverse JPEG transform kernel.
+
+    coef: (N, 3, H, W) int quantized YCbCr DCT coefficients, blocks in place
+    → (N, 3, H, W) uint8 RGB: per-channel dequantize + iDCT, the inverse
+    polynomials, ``clip(round(·), 0, 255)``.
+    """
+    C = torch.from_numpy(dct_matrix()).to(coef.device)
+    q = quant_tables(qluma, qchroma, coef.device)
+    y = _unblocks(idct_dequant_blocks(_blocks(coef), q[None, :, None, None],
+                                      C))
+    rgb = torch.stack(ycbcr_inverse_polynomials(y[:, 0], y[:, 1], y[:, 2]),
+                      1)
+    return torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
 
 
 def downsample2x2_ref(img) -> torch.Tensor:
@@ -156,3 +261,104 @@ def downsample2x2_q_ref(img) -> torch.Tensor:
     next level's transform expects.
     """
     return torch.clamp(torch.round(downsample2x2_ref(img)), 0, 255)
+
+
+#: an entropy-decode lane's error kinds, in the reference's raise priority
+#: (the lowest kind wins among lanes failing at the same symbol step)
+ERR_INVALID, ERR_RUN, ERR_TRUNC = 1, 2, 3
+
+
+def entropy_decode_ref(buf, offs, nbits, lut, H: int, W: int):
+    """Plain version of the Huffman decode kernel (baseline, 4:4:4).
+
+    buf: (B,) uint8 — every tile's unstuffed scan followed by at least 8
+    zero guard bytes; offs: (N,) int64 byte offset of each tile's scan;
+    nbits: (N,) int32 scan length in bits; lut: (4·65536,) int16 16-bit
+    lookahead tables [dc-luma, dc-chroma, ac-luma, ac-chroma], each entry
+    ``symbol | code_length << 8`` (length 0: no code starts with these
+    bits). Returns ``(coef, stop, err_kind)``: (N, 3, H, W) int32
+    coefficients, blocks in place, DC integrated per component; for each
+    lane the index of the symbol at which it stopped — its last symbol, or
+    the one at which it first failed; and the kind of that failure
+    (``ERR_*``, 0 for none).
+
+    The lockstep of ``repro.wsi.entropy_jax._lockstep``, in int32 with 3-byte
+    windows: step s decodes the s-th symbol of every live lane. A lane
+    stops at its first failure and the others run on, so each lane's
+    result is what it is alone — what the CUDA kernel computes with one
+    thread per lane.
+    """
+    dev = buf.device
+    N = offs.numel()
+    nu = (H // 8) * (W // 8) * 3
+    plane = H * W
+    flat = torch.zeros(N * 3 * plane + 1, dtype=torch.int32, device=dev)
+    stop = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    err_kind = torch.zeros(N, dtype=torch.int32, device=dev)
+    coef = flat[:-1].view(N, 3, H, W)
+    if N == 0 or nu == 0:
+        return coef, stop, err_kind
+
+    dump = N * 3 * plane  # where masked-off lanes write (sliced away)
+    lut = lut.to(torch.int32)
+    nat = torch.from_numpy(ZIGZAG).to(dev)
+    buf = buf.to(torch.int32)
+    base = torch.arange(N, device=dev) * (3 * plane)
+    pos = torch.zeros(N, dtype=torch.int32, device=dev)
+    u = torch.zeros_like(pos)
+    k = torch.zeros_like(pos)
+    pred = torch.zeros((N, 3), dtype=torch.int32, device=dev)
+    live = torch.ones(N, dtype=torch.bool, device=dev)
+
+    def window(p, live):  # 24 bits from the byte of each live cursor p
+        i = offs + (torch.where(live, p, 0) >> 3)
+        return (buf[i] << 16) | (buf[i + 1] << 8) | buf[i + 2]
+
+    step = 0
+    while True:
+        is_dc = k == 0
+        comp = u % 3
+        code = (window(pos, live) >> (8 - (pos & 7))) & 0xFFFF
+        e = lut[(torch.where(is_dc, 0, 2) + (comp != 0)) * 65536 + code]
+        sym, ln = e & 0xFF, e >> 8
+        s = torch.where(is_dc, sym, sym & 0xF)
+        pos2 = pos + ln
+        ext = (1 << s) - 1
+        bits = (window(pos2, live) >> (24 - (pos2 & 7) - s)) & ext
+        v = torch.where(bits >= (1 << s) >> 1, bits, bits - ext)
+
+        is_eob = ~is_dc & (sym == 0x00)
+        is_zrl = ~is_dc & (sym == 0xF0)
+        is_coef = ~(is_dc | is_eob | is_zrl)
+        knew = k + (sym >> 4)
+        bad_code = live & (ln == 0)
+        bad_run = live & ~bad_code & is_coef & (knew > 63)
+        err_kind = torch.where(bad_code, ERR_INVALID,
+                               torch.where(bad_run, ERR_RUN, err_kind))
+        ok = live & ~(bad_code | bad_run)
+        pos = torch.where(ok, pos2 + s, pos)
+
+        # the DC predictor of the lane's component, then one scatter
+        old = pred.gather(1, comp[:, None].long())[:, 0]
+        dc = torch.where(ok & is_dc, old + v, old)
+        pred.scatter_(1, comp[:, None].long(), dc[:, None])
+        slot = nat[torch.where(is_dc, 0, knew.clamp(0, 63))]
+        blk = u // 3
+        addr = (base + comp.long() * plane
+                + ((blk // (W // 8)) * 8 + slot // 8) * W
+                + (blk % (W // 8)) * 8 + slot % 8)
+        write = ok & (is_dc | is_coef)
+        flat[torch.where(write, addr, dump)] = torch.where(is_dc, dc, v)
+
+        k = torch.where(ok, torch.where(is_dc, 1, torch.where(
+            is_zrl, k + 16, torch.where(is_coef, knew + 1, k))), k)
+        adv = ok & (is_eob | (k >= 64))
+        u = u + adv.to(torch.int32)
+        k = torch.where(adv, 0, k)
+        trunc = ok & (u < nu) & (pos > nbits)
+        err_kind = torch.where(trunc, ERR_TRUNC, err_kind)
+        stop = torch.where(live & ~(ok & (u < nu) & ~trunc), step, stop)
+        live = ok & (u < nu) & ~trunc
+        step += 1
+        if step % 16 == 0 and not bool(live.any()):
+            return coef, stop, err_kind

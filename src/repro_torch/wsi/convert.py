@@ -7,7 +7,7 @@ with the ``downsample2x2`` kernel, transform-code every level's tiles with
 the ``jpeg_transform`` kernel, entropy-code on the host, wrap each level in
 a DICOM Part-10 instance (TILED_FULL) and bundle the study as a tar.
 
-Two engines, both emitting study tars **byte-identical** to each other and
+Three paths, all emitting study tars **byte-identical** to each other and
 to ``repro``'s for the same pixels and manifest ``"uids"``:
 
 - **pipelined** (default): level 0 goes up once, in row strips from pinned
@@ -22,9 +22,10 @@ to ``repro``'s for the same pixels and manifest ``"uids"``:
   each level's host work finishes before the next level's device work is
   enqueued. Kept as the byte-identity A/B baseline; ``jpeg=False`` writes
   native explicit-VR-LE frames.
-
-The per-tile path of the reference (``batched=False``) is not ported yet
-(ROADMAP, Queue A, item 3) and raises ``NotImplementedError``.
+- **per-tile** (``batched=False``): the sync engine's device pyramid, but
+  every frame is encoded on its own by ``encode_tile`` (one ``rgb2ycbcr``
+  and three ``dct8x8_quant`` launches and the Python Huffman loop). Kept
+  as the A/B baseline of the whole-level transform.
 
 **Determinism, crash/resume**: as in the reference, the study/series UIDs
 are minted once into the manifest (``"uids"``), SOP UIDs derive from the
@@ -46,7 +47,8 @@ from repro_torch.kernels import downsample2x2, jpeg_transform
 from repro_torch.wsi.dicom import (TS_EXPLICIT_LE, TS_JPEG_BASELINE, new_uid,
                                    write_part10)
 from repro_torch.wsi.formats import SlideReader, open_slide
-from repro_torch.wsi.jpeg import encode_coef_batch
+from repro_torch.wsi.jpeg import (encode_coef_batch, encode_tile,
+                                  resolve_device)
 
 __all__ = ["convert_wsi_to_dicom", "study_levels", "ConvertOptions",
            "TRANSFER_STATS"]
@@ -69,7 +71,9 @@ class ConvertOptions:
         minted on first use. A manifest written by ``repro``'s converter is
         accepted as it is.
     batched
-        Must stay ``True``: the reference's per-tile path is not ported.
+        ``True`` (default): one ``jpeg_transform`` launch per level.
+        ``False``: the per-tile path (``encode_tile`` per frame), through
+        the sync engine.
     pipelined
         ``True`` (default): the overlapped engine (see module docstring).
         ``False``: strictly sequential per-level stages.
@@ -97,15 +101,6 @@ class ConvertOptions:
         against the cleared manifest mints fresh identifiers.
         """
         self.manifest.clear()
-
-
-def _resolve_device(device: str | None) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"ConvertOptions(device={device!r}): no CUDA device is available "
-            "— pass device='cpu' to convert on the CPU")
-    return dev
 
 
 def _study_uids(opt: ConvertOptions) -> tuple[str, str]:
@@ -300,7 +295,8 @@ def _convert_pipelined(rd: SlideReader, metadata: dict | None,
 def _convert_sync(rd: SlideReader, metadata: dict | None,
                   opt: ConvertOptions, study_uid: str, series_uid: str,
                   device: torch.device) -> int:
-    """The strictly sequential engine. Returns the number of levels."""
+    """The strictly sequential engine (batched or per-tile). Returns the
+    number of levels."""
     tile = rd.tile
     level = np.empty((rd.H, rd.W, 3), np.uint8)
     for (r, c), t in rd.tiles():
@@ -315,15 +311,15 @@ def _convert_sync(rd: SlideReader, metadata: dict | None,
     while True:
         H, W = int(dev.shape[1]), int(dev.shape[2])
         if str(li) not in opt.manifest:
-            if opt.jpeg:
+            ts = TS_JPEG_BASELINE if opt.jpeg else TS_EXPLICIT_LE
+            if opt.jpeg and opt.batched:
                 coef = jpeg_transform(_tile_batch(dev, tile)).cpu().numpy()
                 frames = encode_coef_batch(coef)
-                ts = TS_JPEG_BASELINE
             else:
                 img = dev.cpu().numpy().transpose(1, 2, 0).astype(np.uint8)
-                frames = [np.ascontiguousarray(f).tobytes()
+                frames = [encode_tile(f, device=device) if opt.jpeg
+                          else np.ascontiguousarray(f).tobytes()
                           for f in _level_frames(img, tile)]
-                ts = TS_EXPLICIT_LE
             _wrap_level(opt, li, frames, ts, tile, H, W, metadata,
                         study_uid, series_uid)
         if min(H, W) // 2 < opt.min_level_size:
@@ -361,11 +357,7 @@ def convert_wsi_to_dicom(slide_bytes: bytes, metadata: dict | None = None,
     ``repro_torch.wsi.formats.sniff``) and ``RuntimeError`` when the
     requested CUDA device is missing."""
     opt = options or ConvertOptions()
-    if not opt.batched:
-        raise NotImplementedError(
-            "ConvertOptions(batched=False): the per-tile path is not ported "
-            "to repro_torch yet (ROADMAP, Queue A, item 3)")
-    device = _resolve_device(opt.device)
+    device = resolve_device(opt.device)
     rd = open_slide(slide_bytes)
     if rd.H % rd.tile or rd.W % rd.tile:
         raise ValueError(
@@ -376,7 +368,7 @@ def convert_wsi_to_dicom(slide_bytes: bytes, metadata: dict | None = None,
     ctx = torch.cuda.device(device) if device.type == "cuda" \
         else nullcontext()
     with ctx:
-        if opt.pipelined and opt.jpeg:
+        if opt.pipelined and opt.jpeg and opt.batched:
             n_levels = _convert_pipelined(rd, metadata, opt, study_uid,
                                           series_uid, device)
         else:

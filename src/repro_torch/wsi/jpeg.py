@@ -1,18 +1,40 @@
-"""JPEG baseline encoder, host half: the vectorized entropy coder + JFIF.
+"""JPEG baseline codec: the port's kernels for the transforms, host numpy
+for the bitstream's container and (encode side) its entropy coder.
 
-The encode half of ``repro.wsi.jpeg``, copied as host numpy (the port
-imports nothing of ``repro``). The transform (color conversion, 8×8 DCT,
-quantization) runs on the card in ``repro_torch.kernels.jpeg_transform``;
-Huffman coding is a sequential, branchy bitstream operation, so it stays on
-the host, vectorized over a whole level (``encode_coef_batch``): one
-gather/sort/bincount-bitpack pass whose cost scales with the emitted
-symbols, not the coefficients. Output is byte-identical to the reference's
-for equal coefficients.
+The codec of ``repro.wsi.jpeg``, copied (the port imports nothing of
+``repro``) and moved onto the port's kernels. Produces and consumes real
+JFIF bytes (SOI/APP0/DQT/SOF0/DHT/SOS/EOI, standard Annex-K tables, 4:4:4,
+byte stuffing), byte-identical to the reference's for equal coefficients.
 
-Produces real JFIF bytes (SOI/APP0/DQT/SOF0/DHT/SOS/EOI, standard Annex-K
-tables, 4:4:4, byte stuffing). The only module-level cache (the zigzag
-gather index) is an ``lru_cache``, so the coder is thread-safe and the
-heavy numpy regions release the GIL.
+Two encoder paths, byte-identical to each other:
+
+- ``encode_tiles_batch``: the whole-level path — one ``jpeg_transform``
+  launch for every tile of a level, then the numpy-vectorized symbol-stream
+  entropy coder (``encode_coef_batch``), whose cost scales with the emitted
+  symbols, not the coefficients.
+- ``encode_tile``: the per-tile path — one ``rgb2ycbcr`` and three
+  ``dct8x8_quant`` launches per tile and the per-coefficient Python Huffman
+  loop. Kept as the A/B baseline.
+
+And two decoder paths, pixel-identical to each other:
+
+- ``decode_tiles_batch``: the whole-level path — the JFIF containers are
+  parsed and unstuffed on the host, then one ``entropy_decode`` launch
+  decodes every tile's scan (one thread per tile, ``wsi/entropy.py``) into
+  the coefficient planes on the card, and one ``jpeg_inverse`` launch turns
+  them into RGB.
+- ``decode_tile``: the per-tile path — the per-symbol Python Huffman loop,
+  then ``jpeg_inverse`` on a batch of one.
+
+The numpy lockstep decoder (``_entropy_decode_batch``, ``engine="numpy"``)
+stays as the differential oracle of the kernel, as in the reference.
+Truncated or garbage input raises ``ValueError("corrupt JPEG …")`` from
+every decode entry point, with the reference's strings.
+
+Every public entry point that touches the card takes ``device=`` (default
+``"cuda"``; ``"cpu"`` runs the kernels' plain versions; a CUDA device on a
+machine without one raises). The only module-level caches are
+``lru_cache``s, so the codec is thread-safe.
 """
 from __future__ import annotations
 
@@ -20,10 +42,29 @@ import struct
 from functools import lru_cache
 
 import numpy as np
+import torch
 
+from repro_torch.kernels import (dct8x8_quant, jpeg_inverse, jpeg_transform,
+                                 rgb2ycbcr)
 from repro_torch.kernels.ref import JPEG_CHROMA_Q, JPEG_LUMA_Q
+from repro_torch.kernels.ref import ZIGZAG as _ZIGZAG
+from repro_torch.wsi.dicom import TS_EXPLICIT_LE, TS_JPEG_BASELINE
+from repro_torch.wsi.entropy import decode_scans, pack_scans
 
-__all__ = ["encode_coef_batch"]
+__all__ = ["encode_tile", "encode_tiles_batch", "encode_coef_batch",
+           "decode_tile", "decode_tiles_batch", "decode_coef_batch",
+           "decode_frames", "psnr", "resolve_device"]
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` → ``cuda``; a CUDA device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r}: no CUDA device is available — pass "
+            "device='cpu' to run on the CPU")
+    return dev
+
 
 # --------------------------------------------------------------------------
 # Annex-K Huffman tables
@@ -67,13 +108,6 @@ _AC_C_VALS = [
     0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA,
 ]
 
-_ZIGZAG = np.array([
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
-])
-
 
 def _build_codes(bits, vals):
     """Canonical Huffman: symbol -> (code, length)."""
@@ -94,6 +128,162 @@ _ENC = {
     ("ac", 0): _build_codes(_AC_L_BITS, _AC_L_VALS),
     ("ac", 1): _build_codes(_AC_C_BITS, _AC_C_VALS),
 }
+_DEC = {
+    k: {v: sym for sym, v in table.items()} for k, table in _ENC.items()
+}
+
+
+class _BitWriter:
+    def __init__(self):
+        self.out = bytearray()
+        self.acc = 0
+        self.nbits = 0
+
+    def put(self, code: int, length: int):
+        self.acc = (self.acc << length) | (code & ((1 << length) - 1))
+        self.nbits += length
+        while self.nbits >= 8:
+            byte = (self.acc >> (self.nbits - 8)) & 0xFF
+            self.out.append(byte)
+            if byte == 0xFF:
+                self.out.append(0x00)  # byte stuffing
+            self.nbits -= 8
+        self.acc &= (1 << self.nbits) - 1
+
+    def flush(self):
+        if self.nbits:
+            pad = 8 - self.nbits
+            self.put((1 << pad) - 1, pad)
+        return bytes(self.out)
+
+
+class _BitReader:
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+        self.acc = 0
+        self.nbits = 0
+
+    def _fill(self):
+        if self.pos >= len(self.data):
+            raise ValueError("corrupt JPEG stream: truncated scan data")
+        b = self.data[self.pos]
+        self.pos += 1
+        if b == 0xFF and self.pos < len(self.data) \
+                and self.data[self.pos] == 0x00:
+            self.pos += 1  # unstuff
+        self.acc = (self.acc << 8) | b
+        self.nbits += 8
+
+    def get(self, n: int) -> int:
+        while self.nbits < n:
+            self._fill()
+        v = (self.acc >> (self.nbits - n)) & ((1 << n) - 1)
+        self.nbits -= n
+        self.acc &= (1 << self.nbits) - 1
+        return v
+
+    def huff(self, table: dict) -> int:
+        code, ln = 0, 0
+        while ln < 16:
+            code = (code << 1) | self.get(1)
+            ln += 1
+            sym = table.get((code, ln))
+            if sym is not None:
+                return sym
+        raise ValueError("corrupt JPEG stream: invalid Huffman code")
+
+
+def _category(v: int) -> int:
+    return int(v).bit_length() if v > 0 else int(-v).bit_length()
+
+
+def _encode_blocks(bw: _BitWriter, planes: list[np.ndarray]):
+    """planes: 3 × (H, W) int coefficient planes (blocks in place), 4:4:4."""
+    H, W = planes[0].shape
+    bh, bwid = H // 8, W // 8
+    zz = [
+        p.reshape(bh, 8, bwid, 8).transpose(0, 2, 1, 3)
+        .reshape(bh, bwid, 64)[:, :, _ZIGZAG]
+        for p in planes
+    ]
+    pred = [0, 0, 0]
+    for r in range(bh):
+        for c in range(bwid):
+            for comp in range(3):
+                tid = 0 if comp == 0 else 1
+                blk = zz[comp][r, c]
+                dc = int(blk[0])
+                diff = dc - pred[comp]
+                pred[comp] = dc
+                s = _category(diff)
+                code, ln = _ENC[("dc", tid)][s]
+                bw.put(code, ln)
+                if s:
+                    bw.put(diff if diff >= 0 else diff + (1 << s) - 1, s)
+                run = 0
+                ac = blk[1:]
+                nz = np.nonzero(ac)[0]
+                last = nz[-1] if len(nz) else -1
+                for i in range(last + 1):
+                    v = int(ac[i])
+                    if v == 0:
+                        run += 1
+                        continue
+                    while run > 15:
+                        code, ln = _ENC[("ac", tid)][0xF0]
+                        bw.put(code, ln)
+                        run -= 16
+                    s = _category(v)
+                    code, ln = _ENC[("ac", tid)][(run << 4) | s]
+                    bw.put(code, ln)
+                    bw.put(v if v >= 0 else v + (1 << s) - 1, s)
+                    run = 0
+                if last < 62:
+                    code, ln = _ENC[("ac", tid)][0x00]  # EOB
+                    bw.put(code, ln)
+
+
+def _decode_blocks(br: _BitReader, H: int, W: int) -> list[np.ndarray]:
+    bh, bwid = H // 8, W // 8
+    out = [np.zeros((bh, bwid, 64), np.int32) for _ in range(3)]
+    pred = [0, 0, 0]
+    inv_zz = np.argsort(_ZIGZAG)
+    for r in range(bh):
+        for c in range(bwid):
+            for comp in range(3):
+                tid = 0 if comp == 0 else 1
+                blk = np.zeros(64, np.int32)
+                s = br.huff(_DEC[("dc", tid)])
+                diff = 0
+                if s:
+                    bits = br.get(s)
+                    diff = bits if bits >= (1 << (s - 1)) else bits - (1 << s) + 1
+                pred[comp] += diff
+                blk[0] = pred[comp]
+                k = 1
+                while k < 64:
+                    sym = br.huff(_DEC[("ac", tid)])
+                    if sym == 0x00:
+                        break
+                    run, s = sym >> 4, sym & 0xF
+                    if sym == 0xF0:
+                        k += 16
+                        continue
+                    k += run
+                    if k > 63:
+                        raise ValueError(
+                            "corrupt JPEG stream: AC run past end of block")
+                    bits = br.get(s)
+                    v = bits if bits >= (1 << (s - 1)) else bits - (1 << s) + 1
+                    blk[k] = v
+                    k += 1
+                out[comp][r, c] = blk
+    planes = []
+    for comp in range(3):
+        zz = out[comp][:, :, inv_zz].reshape(bh, bwid, 8, 8)
+        planes.append(zz.transpose(0, 2, 1, 3).reshape(H, W))
+    return planes
 
 # --------------------------------------------------------------------------
 # Vectorized entropy coder (the batched path)
@@ -297,6 +487,293 @@ def _entropy_encode_batch(coef: np.ndarray) -> list[bytes]:
 
 
 # --------------------------------------------------------------------------
+# Vectorized entropy decoder: the numpy oracle, and the kernel's tables
+# --------------------------------------------------------------------------
+# 16-bit-lookahead Huffman tables: LUT[peek] = (symbol, code length). Codes
+# are ≤ 16 bits, so every 16-bit window starting at a code boundary resolves
+# the symbol in one gather; windows matching no code have length 0 (corrupt).
+def _huff_lut(table: dict) -> tuple[np.ndarray, np.ndarray]:
+    sym = np.zeros(1 << 16, np.int16)
+    ln = np.zeros(1 << 16, np.int16)
+    for s, (code, length) in table.items():
+        lo = code << (16 - length)
+        sym[lo:lo + (1 << (16 - length))] = s
+        ln[lo:lo + (1 << (16 - length))] = length
+    return sym, ln
+
+# stacked [dc-luma, dc-chroma, ac-luma, ac-chroma]: a decoder lane selects
+# a row from its (DC/AC phase, component) state
+_LUTS = [_huff_lut(_ENC[(kind, tid)])
+         for kind in ("dc", "ac") for tid in (0, 1)]
+_LUT_SYM = np.stack([s for s, _ in _LUTS])
+_LUT_LEN = np.stack([ln for _, ln in _LUTS])
+del _LUTS
+
+# magnitude decode, tabulated per category s: value = bits if bits ≥ 2^(s-1)
+# else bits - (2^s - 1)   (s = 0 ⇒ no bits, value 0)
+_MAG_MASK = np.array([(1 << s) - 1 for s in range(16)], np.uint64)
+_MAG_HALF = np.array([1 << max(s - 1, 0) for s in range(16)], np.int64)
+_MAG_EXT = np.array([(1 << s) - 1 for s in range(16)], np.int64)
+
+def _unstuff(scan: np.ndarray) -> np.ndarray:
+    """Drop the stuffed 0x00 after every 0xFF (vectorized per tile)."""
+    if scan.size < 2:
+        return scan
+    stuffed = (scan[:-1] == 0xFF) & (scan[1:] == 0x00)
+    if not stuffed.any():
+        return scan
+    keep = np.ones(scan.size, bool)
+    keep[1:][stuffed] = False
+    return scan[keep]
+
+
+def _window64(buf: np.ndarray) -> np.ndarray:
+    """``w[p]`` = bytes ``p..p+7`` of ``buf`` as one big-endian uint64.
+
+    Built once per batch with 8 vectorized passes, so the lockstep loop
+    reads each tile's next 57+ lookahead bits with a *single* gather: a
+    Huffman code (≤ 16 bits) plus its magnitude bits (≤ 11) plus the ≤ 7
+    sub-byte phase is ≤ 34 bits, comfortably inside the window.
+    """
+    pad = np.concatenate([buf, np.zeros(8, np.uint8)])
+    w = np.zeros(buf.size, np.uint64)
+    for i in range(8):
+        w |= pad[i:i + buf.size].astype(np.uint64) << np.uint64(56 - 8 * i)
+    return w
+
+
+def _entropy_decode_batch(scans: list[np.ndarray], H: int,
+                          W: int) -> np.ndarray:
+    """Lockstep twin of ``_decode_blocks`` over N independent scans (numpy).
+
+    The differential oracle of the ``entropy_decode`` kernel, as in the
+    reference: all N tiles advance one symbol per vectorized step, and the
+    first step at which any tile fails raises, invalid Huffman code before
+    AC overrun before truncation. DC slots hold differentials during the
+    loop and are integrated with one cumsum at the end. Returns
+    (N, nb, 3, 64) int32 zigzag coefficients, exactly the symbols the
+    per-tile loop decodes.
+    """
+    N = len(scans)
+    nb = (H // 8) * (W // 8)
+    nu = nb * 3  # block-component units per tile, in bitstream order
+
+    buf, offs, nbits = pack_scans(scans)
+    ends = offs * 8 + nbits  # exclusive bit end of each tile's stream
+    w64 = _window64(buf)
+
+    pos = offs * 8
+    u = np.zeros(N, np.int64)  # unit index: block * 3 + component
+    k = np.zeros(N, np.int64)  # next zigzag slot; 0 ⇒ the DC symbol is next
+    zzf = np.zeros(N * nu * 64, np.int32)  # flat (tile, block, comp, slot)
+    base = np.arange(N, dtype=np.int64) * (nu * 64)
+    active = u < nu
+    chroma = (np.arange(nu + 1) % 3 > 0).astype(np.int64)  # unit → table
+    _c48, _c64 = np.uint64(48), np.uint64(64)
+    _m16 = np.uint64(0xFFFF)
+
+    while active.any():
+        w = w64[pos >> 3]
+        sh = (pos & 7).astype(np.uint64)
+        code = ((w >> (_c48 - sh)) & _m16).astype(np.int64)
+        is_dc = k == 0
+        tbl = np.where(is_dc, 0, 2) + chroma[u]
+        sym = _LUT_SYM[tbl, code]
+        ln = _LUT_LEN[tbl, code]
+        # EOB (0x00) and ZRL (0xF0) have zero magnitude bits by construction
+        s = np.where(is_dc, sym, sym & 0xF)
+        su = s.astype(np.uint64)
+        bits = ((w >> (_c64 - sh - ln.astype(np.uint64) - su))
+                & _MAG_MASK[s]).astype(np.int64)
+        v = np.where(bits >= _MAG_HALF[s], bits, bits - _MAG_EXT[s])
+        pos = np.where(active, pos + ln + s, pos)
+
+        is_eob = ~is_dc & (sym == 0x00)
+        is_zrl = ~is_dc & (sym == 0xF0)
+        is_coef = ~(is_dc | is_eob | is_zrl)
+        # sym >> 4 is 0 for every valid DC category and for EOB; ZRL's
+        # junk value is never read (its k-update uses k + 16 directly)
+        knew = k + (sym >> 4)
+        bad = active & ((ln == 0) | (is_coef & (knew > 63)))
+        if bad.any():
+            if (active & (ln == 0)).any():
+                raise ValueError("corrupt JPEG stream: invalid Huffman code")
+            raise ValueError("corrupt JPEG stream: AC run past end of block")
+
+        # one scatter: the DC differential at slot 0, AC values at slot knew
+        rows = np.flatnonzero(active & (is_dc | is_coef))
+        zzf[base[rows] + u[rows] * 64
+            + np.where(is_dc, 0, knew)[rows]] = v[rows]
+
+        # next slot: DC → 1; ZRL skips 16; a written value advances past
+        # itself; EOB leaves k to be reset below. A run past slot 63 ends
+        # the unit, as in the per-tile loop's `while k < 64` recheck.
+        k = np.where(is_dc, 1,
+                     np.where(is_zrl, k + 16,
+                              np.where(is_coef, knew + 1, k)))
+        adv = active & (is_eob | (k >= 64))  # k ≥ 64 implies an AC phase
+        u = u + adv
+        k = np.where(adv, 0, k)
+        active = u < nu
+        if (active & (pos > ends)).any():
+            raise ValueError("corrupt JPEG stream: truncated scan data")
+
+    zz = zzf.reshape(N, nb, 3, 64)
+    # integrate the DC differentials (predictor resets at tile boundaries)
+    zz[:, :, :, 0] = np.cumsum(zz[:, :, :, 0], axis=1)
+    return zz
+
+
+def _parse_jfif(jpg: bytes) -> tuple[int, int, int, int]:
+    """Parse one tile's JFIF container → (H, W, scan start, scan end).
+
+    Accepts what ``encode_tile``/``encode_coef_batch`` emit (baseline,
+    4:4:4, standard tables), plus DICOM's even-length convention of one
+    trailing 0x00 pad byte after the EOI marker (encapsulated fragments).
+    Truncated or malformed containers raise ``ValueError("corrupt JPEG
+    …")`` — never ``IndexError``/``struct.error``.
+    """
+    if len(jpg) < 4 or jpg[:2] != b"\xff\xd8":
+        raise ValueError("corrupt JPEG stream: missing SOI marker")
+    end = len(jpg)
+    if jpg[end - 1] == 0x00 and jpg[end - 3:end - 1] == b"\xff\xd9":
+        end -= 1  # DICOM even-length fragment pad
+    if jpg[end - 2:end] != b"\xff\xd9":
+        raise ValueError("corrupt JPEG stream: missing EOI marker")
+    pos = 0
+    H = W = None
+    while pos + 2 <= end:
+        if jpg[pos] != 0xFF:
+            raise ValueError(
+                f"corrupt JPEG stream: expected a marker at offset {pos}")
+        code = jpg[pos + 1]
+        pos += 2
+        if code in (0xD8, 0xD9):
+            continue
+        if pos + 2 > end:
+            raise ValueError("corrupt JPEG stream: truncated marker segment")
+        ln = struct.unpack_from(">H", jpg, pos)[0]
+        if ln < 2 or pos + ln > end:
+            raise ValueError(
+                "corrupt JPEG stream: marker segment overruns container")
+        if code == 0xC0:
+            if ln < 9:
+                raise ValueError("corrupt JPEG stream: short SOF segment")
+            _, H, W, _ = struct.unpack_from(">BHHB", jpg, pos + 2)
+            if not H or not W or H % 8 or W % 8:
+                raise ValueError(
+                    f"corrupt JPEG stream: unsupported frame size {H}x{W}")
+        if code == 0xDA:
+            if H is None:
+                raise ValueError("corrupt JPEG stream: SOS before SOF")
+            start = pos + ln
+            if start > end - 2:
+                raise ValueError("corrupt JPEG stream: no scan data")
+            return H, W, start, end - 2
+        pos += ln
+    raise ValueError("corrupt JPEG stream: no SOS marker")
+
+
+def _scans(jpgs: list[bytes]) -> tuple[list[np.ndarray], int, int]:
+    """Parse N JFIF tiles of one geometry → (unstuffed scans, H, W)."""
+    geom = [_parse_jfif(j) for j in jpgs]
+    H, W = geom[0][:2]
+    if any((h, w) != (H, W) for h, w, _, _ in geom):
+        raise ValueError(
+            "corrupt JPEG stream: mixed tile geometries in one batch "
+            f"({sorted({(h, w) for h, w, _, _ in geom})})")
+    scans = [_unstuff(np.frombuffer(jpg, np.uint8, end - start, start))
+             for jpg, (_, _, start, end) in zip(jpgs, geom)]
+    return scans, H, W
+
+
+def decode_coef_batch(jpgs: list[bytes], *, device="cuda",
+                      engine: str = "kernel") -> torch.Tensor:
+    """N baseline JFIF tiles → (N, 3, H, W) int32 quantized coefficients.
+
+    The entropy stage of the batched decode path, on ``device`` — the exact
+    inverse of ``encode_coef_batch`` (only the transform stage is lossy).
+    ``engine="kernel"`` (default) is one ``entropy_decode`` launch (its
+    plain version on the CPU); ``engine="numpy"`` is the host lockstep
+    oracle. All tiles of a batch must share one geometry, as a pyramid
+    level's frames do. Raises ``ValueError("corrupt JPEG …")`` on
+    truncated/garbage input, with the reference's strings.
+    """
+    dev = resolve_device(device)
+    if engine not in ("kernel", "numpy"):
+        raise ValueError(f"engine must be 'kernel' or 'numpy': {engine!r}")
+    jpgs = list(jpgs)
+    if not jpgs:
+        return torch.zeros((0, 3, 0, 0), dtype=torch.int32, device=dev)
+    scans, H, W = _scans(jpgs)
+    if engine == "kernel":
+        return decode_scans(scans, H, W, dev)
+    zz = _entropy_decode_batch(scans, H, W)  # (N, nb, 3, 64)
+    N, nb = zz.shape[:2]
+    out = np.empty((N, 3, H * W), np.int32)
+    # scatter back through the encoder's zigzag gather index (its inverse)
+    out[:, :, _zigzag_gather_index(H, W)] = \
+        zz.transpose(0, 2, 1, 3).reshape(N, 3, nb * 64)
+    return torch.from_numpy(out.reshape(N, 3, H, W)).to(dev)
+
+
+def _rgb_to_host(rgb: torch.Tensor) -> np.ndarray:
+    """(N, 3, H, W) uint8 on any device → (N, H, W, 3) host array."""
+    return rgb.permute(0, 2, 3, 1).contiguous().cpu().numpy()
+
+
+def decode_tiles_batch(jpgs: list[bytes], *, device="cuda") -> np.ndarray:
+    """N baseline JFIF tiles → (N, H, W, 3) uint8 RGB.
+
+    The whole-level batched decode path: one ``entropy_decode`` launch
+    (``decode_coef_batch``), then one ``jpeg_inverse`` launch, both on
+    ``device``. Output is pixel-identical to ``[decode_tile(j) for j in
+    jpgs]``: both paths share the one ``jpeg_inverse`` transform, so
+    identity reduces to the (exact, integer) coefficients matching.
+    """
+    coef = decode_coef_batch(jpgs, device=device)
+    if coef.shape[0] == 0:
+        return np.zeros((0, 0, 0, 3), np.uint8)
+    return _rgb_to_host(jpeg_inverse(coef))
+
+
+def decode_frames(frames: list[bytes], *, transfer_syntax: str,
+                  rows: int, cols: int, device="cuda") -> np.ndarray:
+    """WADO frame bytes of one WSM instance → (n, rows, cols, 3) uint8 RGB.
+
+    The single transfer-syntax dispatch of every store consumer (the
+    export service, the ML-inference subscriber): JPEG-baseline frames go
+    through the batched decode path (one ``entropy_decode`` and one
+    ``jpeg_inverse`` launch), a single frame included; native
+    explicit-VR-LE frames are reshaped directly. Geometry mismatches and
+    unknown syntaxes raise ``ValueError``.
+    """
+    dev = resolve_device(device)
+    frames = list(frames)
+    if rows <= 0 or cols <= 0:
+        raise ValueError(f"bad frame geometry {rows}x{cols}")
+    if not frames:
+        return np.zeros((0, rows, cols, 3), np.uint8)
+    if transfer_syntax == TS_JPEG_BASELINE:
+        rgb = decode_tiles_batch(frames, device=dev)
+        if rgb.shape[1:3] != (rows, cols):
+            raise ValueError(
+                f"frames decode to {rgb.shape[1]}x{rgb.shape[2]}, "
+                f"expected {rows}x{cols}")
+        return rgb
+    if transfer_syntax == TS_EXPLICIT_LE:
+        if any(len(f) != rows * cols * 3 for f in frames):
+            raise ValueError(
+                f"native frame size mismatch (expected {rows * cols * 3} "
+                "bytes)")
+        return np.stack([np.frombuffer(f, np.uint8).reshape(rows, cols, 3)
+                         for f in frames])
+    raise ValueError(
+        f"unsupported transfer syntax {transfer_syntax} (JPEG baseline "
+        "and explicit-VR-LE native are decodable)")
+
+
+# --------------------------------------------------------------------------
 # JFIF container
 # --------------------------------------------------------------------------
 def _marker(buf: bytearray, code: int, payload: bytes = b""):
@@ -335,6 +812,33 @@ def _jfif_header(H: int, W: int) -> bytearray:
     return buf
 
 
+def encode_tile(tile_rgb: np.ndarray, *, device="cuda") -> bytes:
+    """RGB (H, W, 3) uint8 → baseline JFIF bytes (4:4:4).
+
+    The per-tile path: one ``rgb2ycbcr`` and three ``dct8x8_quant``
+    launches on ``device``, then the per-coefficient Python Huffman loop.
+    Kept as the A/B baseline for ``encode_tiles_batch`` (byte-identical
+    output).
+    """
+    dev = resolve_device(device)
+    H, W, _ = tile_rgb.shape
+    if H % 8 or W % 8:
+        raise ValueError(f"tile {H}x{W} is not a multiple of 8")
+    chw = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(tile_rgb, (2, 0, 1)), np.float32)).to(dev)
+    ycc = rgb2ycbcr(chw)  # level-shifted
+    qs = (JPEG_LUMA_Q, JPEG_CHROMA_Q, JPEG_CHROMA_Q)
+    planes = torch.stack([dct8x8_quant(ycc[i], qs[i])
+                          for i in range(3)]).cpu().numpy()
+
+    buf = _jfif_header(H, W)
+    bw = _BitWriter()
+    _encode_blocks(bw, list(planes))
+    buf += bw.flush()
+    _marker(buf, 0xD9)  # EOI
+    return bytes(buf)
+
+
 def encode_coef_batch(coef: np.ndarray) -> list[bytes]:
     """(N, 3, H, W) int quantized YCbCr DCT coefficients → N JFIF tiles.
 
@@ -348,3 +852,43 @@ def encode_coef_batch(coef: np.ndarray) -> list[bytes]:
     header = bytes(_jfif_header(H, W))
     eoi = bytes((0xFF, 0xD9))
     return [header + scan + eoi for scan in _entropy_encode_batch(coef)]
+
+
+def encode_tiles_batch(tiles_rgb: np.ndarray, *,
+                       device="cuda") -> list[bytes]:
+    """RGB (N, H, W, 3) uint8 → N baseline JFIF byte strings (4:4:4).
+
+    The whole-level batched path: all N tiles transform-coded in one
+    ``jpeg_transform`` launch on ``device``, then the vectorized entropy
+    coder. Output is byte-identical to ``[encode_tile(t) for t in
+    tiles_rgb]``.
+    """
+    dev = resolve_device(device)
+    tiles = np.asarray(tiles_rgb)
+    N, H, W, _ = tiles.shape
+    if H % 8 or W % 8:
+        raise ValueError(f"tiles {H}x{W} are not a multiple of 8")
+    chw = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(tiles, (0, 3, 1, 2)), np.float32)).to(dev)
+    return encode_coef_batch(jpeg_transform(chw).cpu().numpy())
+
+
+def decode_tile(jpg: bytes, *, device="cuda") -> np.ndarray:
+    """Baseline JFIF (as produced by ``encode_tile``) → RGB (H, W, 3) uint8.
+
+    The per-tile decode path: the per-symbol Python Huffman loop, then the
+    shared ``jpeg_inverse`` kernel on a batch of one on ``device`` — the A/B
+    baseline for ``decode_tiles_batch`` (pixel-identical output).
+    Truncated/garbage input raises ``ValueError("corrupt JPEG …")``.
+    """
+    dev = resolve_device(device)
+    H, W, data_start, data_end = _parse_jfif(jpg)
+    br = _BitReader(jpg[data_start:data_end])
+    planes = _decode_blocks(br, H, W)
+    coef = torch.from_numpy(np.stack(planes)[None].astype(np.int32)).to(dev)
+    return _rgb_to_host(jpeg_inverse(coef))[0]
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0**2 / max(mse, 1e-12)))

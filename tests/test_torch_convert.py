@@ -205,7 +205,7 @@ def test_write_part10_bytes_identical(ts):
 
 
 # --------------------------------------------------------------------------
-# device policy and the unported path
+# device policy
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_missing_gpu_raises(device):
@@ -215,13 +215,6 @@ def test_missing_gpu_raises(device):
     assert ConvertOptions().device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert_wsi_to_dicom(psv, options=ConvertOptions(device=device))
-
-
-def test_per_tile_path_not_ported():
-    psv = SyntheticScanner(seed=1).scan(256, 256, 256)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        convert_wsi_to_dicom(psv, options=ConvertOptions(batched=False,
-                                                         device="cpu"))
 
 
 def test_unaligned_slide_raises():

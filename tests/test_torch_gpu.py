@@ -1,7 +1,7 @@
-"""The port on a CUDA card: each kernel vs its plain version, and the
-converter on the card vs its CPU plain path. Every test here is marked
-``gpu`` and skips without a card; the file imports no JAX, so it runs on a
-GPU machine that has none:
+"""The port on a CUDA card: each kernel vs its plain version, the
+converter and the decoders on the card vs their CPU plain paths. Every
+test here is marked ``gpu`` and skips without a card; the file imports
+no JAX, so it runs on a GPU machine that has none:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -14,6 +14,9 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.wsi import (ConvertOptions, SyntheticScanner,
                              convert_wsi_to_dicom, open_slide)
+from repro_torch.wsi import jpeg as P
+from repro_torch.wsi.dicom import TS_JPEG_BASELINE
+from repro_torch.wsi.entropy import _device_lut, pack_scans
 
 pytestmark = pytest.mark.gpu
 
@@ -73,3 +76,114 @@ def test_conversion_on_card_matches_cpu_plain_path(cuda_device):
     assert run("cuda") == cpu_tar
     assert run("cuda", pipelined=False) == cpu_tar
     assert run("cuda", jpeg=False) == run("cpu", jpeg=False)
+
+
+def _jpgs(tiles_nchw: np.ndarray) -> list[bytes]:
+    return P.encode_tiles_batch(np.ascontiguousarray(
+        np.transpose(tiles_nchw, (0, 2, 3, 1)), dtype=np.uint8), device="cpu")
+
+
+def test_jpeg_inverse_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(13)
+    noise = rng.integers(0, 256, size=(8, 3, 256, 256)).astype(np.float32)
+    for tiles in (_slide_tiles(7, 1024), noise,
+                  rng.integers(0, 256, size=(3, 3, 24, 136))):
+        coef = ops.jpeg_transform(torch.from_numpy(
+            np.asarray(tiles, np.float32)).to(cuda_device))
+        n0 = ops.jpeg_inverse.launches
+        got = ops.jpeg_inverse(coef)
+        assert ops.jpeg_inverse.launches == n0 + 1
+        assert got.dtype == torch.uint8
+        assert torch.equal(got, ops.jpeg_inverse(coef, impl="ref"))
+    empty = ops.jpeg_inverse(torch.zeros((0, 3, 8, 8), dtype=torch.int32,
+                                         device=cuda_device))
+    assert empty.shape == (0, 3, 8, 8)
+
+
+def test_per_tile_kernels_match_plain(cuda_device):
+    rng = np.random.default_rng(14)
+    for shape in ((3, 256, 256), (3, 24, 136)):
+        img = torch.from_numpy(rng.integers(0, 256, size=shape)
+                               .astype(np.float32)).to(cuda_device)
+        n0 = ops.rgb2ycbcr.launches
+        ycc = ops.rgb2ycbcr(img)
+        assert ops.rgb2ycbcr.launches == n0 + 1
+        assert torch.equal(ycc, ops.rgb2ycbcr(img, impl="ref"))
+        for plane, q in ((ycc[0], None), (ycc[1], P.JPEG_CHROMA_Q)):
+            n0 = ops.dct8x8_quant.launches
+            got = ops.dct8x8_quant(plane, q)
+            assert ops.dct8x8_quant.launches == n0 + 1
+            assert torch.equal(got, ops.dct8x8_quant(plane, q, impl="ref"))
+
+
+def test_entropy_decode_kernel_matches_plain_and_numpy(cuda_device):
+    rng = np.random.default_rng(15)
+    for tiles in (_slide_tiles(8, 1024),
+                  rng.integers(0, 256, size=(5, 3, 64, 128))):
+        jpgs = _jpgs(tiles)
+        scans, H, W = P._scans(jpgs)
+        n0 = ops.entropy_decode.launches
+        got = P.decode_coef_batch(jpgs, device=cuda_device)
+        assert ops.entropy_decode.launches == n0 + 1
+        expect = P.decode_coef_batch(jpgs, device="cpu", engine="numpy")
+        assert torch.equal(got.cpu(), expect)
+        args = (*(torch.from_numpy(a).to(cuda_device)
+                  for a in pack_scans(scans)), _device_lut(cuda_device), H, W)
+        for a, b in zip(ops.entropy_decode(*args),
+                        ops.entropy_decode(*args, impl="ref")):
+            assert torch.equal(a, b)
+
+
+def test_entropy_decode_kernel_raises_like_numpy_engine(cuda_device):
+    jpg = _jpgs(_slide_tiles(9, 512)[:1])[0]
+    _, _, start, _ = P._parse_jfif(jpg)
+    flipped = bytearray(jpg)
+    flipped[start + 40] ^= 0x10
+    batch = [jpg, jpg[: len(jpg) // 2] + b"\xff\xd9", bytes(flipped), jpg]
+    errs = []
+    for device, engine in ((cuda_device, "kernel"), ("cpu", "numpy")):
+        with pytest.raises(ValueError) as ei:
+            P.decode_coef_batch(batch, device=device, engine=engine)
+        errs.append(str(ei.value))
+    assert errs[0] == errs[1]
+
+
+def test_decoders_on_card_match_cpu_plain_path(cuda_device):
+    jpgs = _jpgs(_slide_tiles(10, 1024))
+    batched = P.decode_tiles_batch(jpgs, device=cuda_device)
+    np.testing.assert_array_equal(batched,
+                                  P.decode_tiles_batch(jpgs, device="cpu"))
+    np.testing.assert_array_equal(
+        batched, np.stack([P.decode_tile(j, device=cuda_device)
+                           for j in jpgs]))
+    np.testing.assert_array_equal(
+        P.decode_frames(jpgs, transfer_syntax=TS_JPEG_BASELINE, rows=256,
+                        cols=256, device=cuda_device), batched)
+
+
+def test_decode_frames_single_frame_launches_both_kernels(cuda_device):
+    jpgs = _jpgs(_slide_tiles(11, 256))
+    n0 = (ops.entropy_decode.launches, ops.jpeg_inverse.launches)
+    one = P.decode_frames(jpgs, transfer_syntax=TS_JPEG_BASELINE, rows=256,
+                          cols=256, device=cuda_device)
+    assert (ops.entropy_decode.launches - n0[0],
+            ops.jpeg_inverse.launches - n0[1]) == (1, 1)
+    np.testing.assert_array_equal(one[0],
+                                  P.decode_tile(jpgs[0], device="cpu"))
+
+
+def test_per_tile_conversion_on_card_matches_batched(cuda_device):
+    psv = SyntheticScanner(seed=19).scan(768, 512, 256)
+    uids = json.dumps(["2.25.3", "2.25.4"])
+
+    def run(**kw):
+        opt = ConvertOptions(manifest={"uids": uids}, **kw)
+        return convert_wsi_to_dicom(psv, {"slide_id": "AB"}, options=opt)
+
+    n0 = (ops.rgb2ycbcr.launches, ops.dct8x8_quant.launches)
+    per_tile = run(device=cuda_device, batched=False)
+    frames = 6 + 1  # 768x512 then 384x256
+    assert (ops.rgb2ycbcr.launches - n0[0],
+            ops.dct8x8_quant.launches - n0[1]) == (frames, 3 * frames)
+    assert per_tile == run(device=cuda_device)
+    assert per_tile == run(device="cpu", batched=False)
