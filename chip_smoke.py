@@ -49,7 +49,36 @@ raises (exit code ≠ 0) on any failed check:
 7. ``entropy_decode`` vs its plain version and the numpy engine on level
    0's frames (coefficient-exact), the same error string as the numpy
    engine on a batch with corrupt frames, and the longest tile's symbol
-   count (the kernel's chain of dependent reads) beside its bytes bound.
+   count (the kernel's chain of dependent reads) beside its bytes bound;
+8. ``wkv_chunk`` (RWKV6's chunked wkv) vs its plain version at the serving
+   path's prefill shape (1, 2048, 40, 64) and a tail shape (1, 200, 40,
+   64), from a random state, decays drawn as tests/test_kernels.py draws
+   them (up to 2 and 25): output and final state within the reference's
+   bound ``max|Δ| / (max|plain| + 1) < 5e-4``; timed beside its bound;
+9. serving — ``rwkv6-3b`` at full width (3.1 B parameters in bf16, random
+   from a seeded generator) in the continuous-batching engine, 4 slots,
+   ``max_len`` 4096, six greedy requests of 32 new tokens with prompts of
+   2048, 1024, 512, 256, 100 and 64 tokens, submitted and ticked as a user
+   runs the engine: with the launch counts zeroed just before, one
+   ``wkv_chunk`` launch per layer per prefill (192) and no other kernel;
+   prefill tokens/s per prompt length (the engine's prefill call, timed
+   alone), decode tokens/s and tokens per tick. Then engine runs that
+   record their logits (a subclass that keeps them as ``_greedy`` picks
+   each token): the kernel again (tokens equal to the main path's), the
+   plain wkv with each of its 192 calls also run through the kernel on the
+   same activations and held to the bound above, and a witness: the plain
+   wkv summed in another order (chunks of 32), an exact reordering whose
+   float32 difference is the kernel's size. This random bf16 model
+   amplifies such a difference in one layer's rounding into a large share
+   of the largest logit over 32 layers, so the witness measures how far
+   two correct runs part (its spread: the largest max|Δ| / max|plain| of
+   a prefill's logits). The kernel's bf16 run is held to twice that
+   spread; the same pair in float32 compute (same bf16 weights) to 2e-3.
+   Each request's tokens must be equal up to the first step at which they
+   part, which is allowed only where the plain run's top-2 logit gap is
+   below twice the bound times the step's largest logit. One 2048-token
+   prefill and one decode step are then profiled (``torch.profiler``):
+   kernel time beside the host wall time, the device's busy share.
 
 Prints the kernel JSON line and the card line before the last line, which
 is ``{"ok": true, "device": {...}}``.
@@ -58,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -77,7 +107,21 @@ MAX_MISMATCH_FRACTION = 1e-6
 PSNR_MIN_DB_LEVEL0 = 30.0
 PSNR_MIN_DB = 25.0
 KERNELS = ("downsample2x2", "jpeg_transform", "jpeg_inverse", "rgb2ycbcr",
-           "dct8x8_quant", "entropy_decode")
+           "dct8x8_quant", "entropy_decode", "wkv_chunk")
+# the reference's bound for its wkv kernel (tests/test_kernels.py)
+WKV_BOUND = 5e-4
+# serving: prompt lengths (their plain prefill stays small: a length that
+# is not a multiple of 64 makes the plain wkv build an (S, S, H, K) tensor,
+# 100 MB at S = 100), new tokens, slots, max_len
+SERVE_PROMPTS = (2048, 1024, 512, 256, 100, 64)
+SERVE_NEW = 32
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 4096
+# max|Δ| / max|plain| of a run's prefill logits vs the plain run's (module
+# doc): in float32 a fixed bound; in bf16 this factor times the witness's
+# spread (the plain wkv summed in another order, vs the plain wkv)
+LOGIT_REL_F32 = 2e-3
+WITNESS_FACTOR = 2.0
 
 
 def _log(msg: str) -> None:
@@ -711,6 +755,367 @@ def check_entropy_decode(tar: bytes) -> dict:
         corrupt_batch_error=errs[0])
 
 
+def _rel(got, want) -> float:
+    """max|got - want| / (max|want| + 1), the reference's wkv measure."""
+    return float((got - want).abs().max() / (want.abs().max() + 1.0))
+
+
+def _wkv_inputs(shape, decay_max: float, gen):
+    """r, k, v ~ N(0, 1); logw = -U(0.005, decay_max) as the reference test
+    draws it; u ~ N(0, 1); a random initial state ~ N(0, 0.2²)."""
+    import torch
+    dev = gen.device
+    B, S, H, K = shape
+    r, k, v = (torch.randn(shape, generator=gen, device=dev)
+               for _ in range(3))
+    logw = -(0.005 + (decay_max - 0.005) * torch.rand(
+        shape, generator=gen, device=dev))
+    u = torch.randn((H, K), generator=gen, device=dev)
+    state = 0.2 * torch.randn((B, H, K, K), generator=gen, device=dev)
+    return r, k, v, logw, u, state
+
+
+def check_wkv_chunk(seed: int) -> dict:
+    """Phase 8: wkv_chunk vs its plain version at the prefill shape and a
+    tail shape, output and final state within WKV_BOUND."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
+    main, tail = (1, 2048, 40, 64), (1, 200, 40, 64)
+    errs, rels, timed = [], [], {}
+    for shape in (main, tail):
+        for decay_max in (2.0, 25.0):
+            a = _wkv_inputs(shape, decay_max, gen)
+            got = ops.wkv_chunk(*a)
+            plain = ops.wkv_chunk(*a, impl="ref")
+            torch.cuda.synchronize()
+            for g, p in zip(got, plain):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"wkv_chunk: non-finite values at "
+                                         f"{shape}")
+                rel = _rel(g, p)
+                if rel >= WKV_BOUND:
+                    raise AssertionError(
+                        f"wkv_chunk: {rel:.3e} of the plain version at "
+                        f"{shape}, decays up to {decay_max} (bound "
+                        f"{WKV_BOUND})")
+                rels.append(rel)
+                errs.append(float((g - p).abs().max()))
+            if decay_max == 2.0:
+                timed[shape] = (
+                    _time_ms(lambda: ops.wkv_chunk(*a)),
+                    _time_ms(lambda: ops.wkv_chunk(*a, impl="ref"), reps=3,
+                             warmup=1))
+            del a, got, plain
+            torch.cuda.empty_cache()
+
+    def bound(shape):
+        # bytes: r, k, v, logw read and out written once, u, the state in
+        # and out; operations: the least the recurrence needs per token and
+        # head, 5 K^2 + 6 K: r . S (K^2 multiply-adds), S <- w S + k^T v
+        # (K^2 multiplies, K^2 multiply-adds), the u bonus (r u k summed,
+        # times v added to the output: 5 K) and exp(logw) (K)
+        B, S, H, K = shape
+        nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
+        return _bound(nbytes, B * S * H * (5.0 * K * K + 6.0 * K))
+
+    b_main, b_tail = bound(main), bound(tail)
+    return dict(
+        name="wkv_chunk", route="cuda",
+        source="src/repro_torch/kernels/csrc/wkv_chunk.cu",
+        replaces="src/repro/kernels/wkv_chunk.py:92",
+        max_abs_err=max(errs), max_rel_err=max(rels),
+        rel_bound=WKV_BOUND, ms=timed[main][0], plain_ms=timed[main][1],
+        bound_ms=b_main[0], bound_by=b_main[1], library_ms=None,
+        shape=list(main), tail_shape=list(tail), tail_ms=timed[tail][0],
+        tail_plain_ms=timed[tail][1], tail_bound_ms=b_tail[0])
+
+
+def _requests(prompts, tokens: dict, max_new: int):
+    from repro_torch.serve.engine import Request
+    return [Request(prompt=p, max_new_tokens=max_new, req_id=i,
+                    done=lambda t, i=i: tokens.update({i: t}))
+            for i, p in enumerate(prompts)]
+
+
+def _serve_timed(cfg, params, prompts, max_new: int = SERVE_NEW) -> dict:
+    """The main path: the engine as a user runs it, every request submitted
+    and ticks run until it drains, each submit and tick timed on the host
+    (synchronised). Returns the tokens, the ticks' times and what each
+    admitted."""
+    import torch
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(cfg, params, batch_size=SERVE_SLOTS,
+                                   max_len=SERVE_MAX_LEN)
+    tokens, ticks = {}, []
+    t0 = time.perf_counter()
+    for req in _requests(prompts, tokens, max_new):
+        eng.submit(req)
+    torch.cuda.synchronize()
+    submit_s = time.perf_counter() - t0
+    while eng.backlog or any(eng.active):
+        before = [r.req_id for r in eng.backlog]
+        t1 = time.perf_counter()
+        eng.tick()
+        torch.cuda.synchronize()
+        admitted = before[:len(before) - len(eng.backlog)]
+        ticks.append((time.perf_counter() - t1, admitted))
+    return dict(tokens=tokens, ticks=ticks, submit_s=submit_s,
+                wall_s=time.perf_counter() - t0)
+
+
+def _serve_recorded(cfg, params, prompts, impl) -> dict:
+    """One engine run that keeps each request's logits at every token it
+    was given (its prefill, then each tick it was active in), through the
+    engine's ``_greedy``. ``impl`` goes to the prefill's wkv."""
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+
+    class Recording(ContinuousBatchingEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.logits, self._admitting = {}, None
+
+        def _prefill_into(self, b, req):
+            self._admitting = req
+            try:
+                super()._prefill_into(b, req)
+            finally:
+                self._admitting = None
+
+        def _greedy(self, logits):
+            rows = [self._admitting] if self._admitting else self.active
+            for row, req in zip(logits.float().cpu(), rows):
+                if req is not None:
+                    self.logits.setdefault(req.req_id, []).append(row)
+            return super()._greedy(logits)
+
+    eng = Recording(cfg, params, batch_size=SERVE_SLOTS,
+                    max_len=SERVE_MAX_LEN, impl=impl)
+    tokens = {}
+    for req in _requests(prompts, tokens, SERVE_NEW):
+        eng.submit(req)
+    eng.run_until_drained()
+    for i, seq in eng.logits.items():  # the tokens are these argmaxes
+        if [int(l.argmax()) for l in seq[:len(tokens[i])]] != tokens[i]:
+            raise AssertionError(f"request {i}: tokens are not the argmax "
+                                 "of the recorded logits")
+    return dict(tokens=tokens, logits=eng.logits)
+
+
+def _shadowed_wkv(shadow: dict):
+    """The plain wkv, each call also run through the kernel on the same
+    inputs and held to WKV_BOUND; counts the calls in ``shadow``."""
+    from repro_torch.kernels import ops
+
+    def wkv(*a):
+        out = ops.wkv_chunk(*a, impl="ref")
+        kernel = ops.wkv_chunk(*a)
+        rel = max(_rel(kernel[0], out[0]), _rel(kernel[1], out[1]))
+        if not rel < WKV_BOUND:
+            raise AssertionError(f"wkv_chunk on the model's activations at "
+                                 f"{tuple(a[0].shape)}: {rel:.3e} of the "
+                                 f"plain version (bound {WKV_BOUND})")
+        shadow["calls"] = shadow.get("calls", 0) + 1
+        shadow["max_rel_err"] = max(shadow.get("max_rel_err", 0.0), rel)
+        return out
+    return wkv
+
+
+def _reordered_wkv(*a):
+    """The plain wkv summed in another order (chunks of 32, sub-blocks of
+    8): the same function, a float32 difference of the kernel's size."""
+    from repro_torch.kernels import ref
+    return ref.wkv_chunked_ref(*a, chunk=32, sub=8)
+
+
+def _profile(fn, wall_ms: float) -> dict:
+    """Kernel time inside one call of ``fn`` by ``torch.profiler`` (the sum
+    of every kernel's device time), beside the call's unprofiled host wall
+    time ``wall_ms``: their ratio is the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []  # the kernels themselves (an operator's entry repeats them)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.key, e.self_device_time_total / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms,
+                kernels=sum(r[2] for r in rows),
+                top=[dict(name=n[:90], ms=ms, calls=c)
+                     for n, ms, c in rows[:6]])
+
+
+def _compare_runs(run, plain, bound: float) -> list:
+    """Each request's prefill logits within ``bound`` (max|Δ| / max|plain|)
+    of the plain run's, and its tokens equal up to a first divergence,
+    allowed only where the plain run's top-2 gap is below 2 · bound ·
+    max|plain logits| at that step. ``bound`` = inf reports only."""
+    rows = []
+    for i, want in plain["tokens"].items():
+        got = run["tokens"][i]
+        la, lp = run["logits"][i], plain["logits"][i]
+        rel = [float((a - p).abs().max() / p.abs().max())
+               for a, p in zip(la, lp)]
+        if rel[0] >= bound:
+            raise AssertionError(f"request {i}: prefill logits {rel[0]:.3e} "
+                                 f"of the plain run's (bound {bound})")
+        part = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                    None)
+        if part is None and len(got) != len(want):
+            raise AssertionError(f"request {i}: {len(got)} tokens, plain "
+                                 f"{len(want)}")
+        gap = limit = None
+        if part is not None:
+            top = lp[part].topk(2).values
+            gap = float(top[0] - top[1])
+            limit = 2 * bound * float(lp[part].abs().max())
+            if not gap < limit:
+                raise AssertionError(
+                    f"request {i}: tokens part at step {part} where the "
+                    f"plain run's top-2 gap is {gap:.4f} (limit {limit:.4f})")
+        upto = len(got) if part is None else part + 1
+        rows.append(dict(request=i, prefill_logit_rel=rel[0],
+                         max_logit_rel_until_parting=max(rel[:upto]),
+                         tokens_equal=part is None, parted_at=part,
+                         plain_top2_gap=gap,
+                         gap_limit=None if limit == math.inf else limit))
+    return rows
+
+
+def run_serving(seed: int) -> dict:
+    """Phase 9: rwkv6-3b at full width in the continuous-batching engine."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_defs
+
+    cfg = get_config("rwkv6-3b")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_defs(params))
+    if n_params != M.param_count(cfg):
+        raise AssertionError(f"{n_params} parameters, expected "
+                             f"{M.param_count(cfg)}")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    def prefill_s(cfg_, impl, reps):
+        """Host wall time (median of ``reps``) of the engine's prefill call
+        for each prompt, synchronised."""
+        out = {}
+        for p in prompts:
+            toks = torch.as_tensor(p, device=dev)[None].long()
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                M.prefill(params, cfg_, toks, max_len=SERVE_MAX_LEN,
+                          impl=impl)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+            out[len(p)] = statistics.median(times)
+        return out
+
+    # warm-up (cuBLAS handles, the kernel's module, the allocator's pools
+    # at every prompt length), then the main path's run
+    _serve_timed(cfg, params, prompts, max_new=2)
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_timed(cfg, params, prompts)
+    launches = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: 0 for k in KERNELS}
+    want["wkv_chunk"] = cfg.num_layers * len(prompts)
+    if launches != want:
+        raise AssertionError(f"serving launches {launches}, expected {want}")
+    pre_s = prefill_s(cfg, "auto", 3)
+
+    # the comparisons, each an engine run that records its logits: the
+    # kernel, the plain wkv (every call shadow-checked against the kernel)
+    # and the plain wkv summed in another order, the witness of how far two
+    # exact orders of float32 sums part in this bf16 model; then the kernel
+    # and the plain wkv in float32 compute
+    rec = _serve_recorded(cfg, params, prompts, "auto")
+    if rec["tokens"] != run["tokens"]:
+        raise AssertionError("the recorded run's tokens differ from the "
+                             "main path's")
+    shadow = {}
+    plain = _serve_recorded(cfg, params, prompts, _shadowed_wkv(shadow))
+    if shadow.get("calls") != want["wkv_chunk"]:
+        raise AssertionError(f"shadow-checked {shadow.get('calls')} wkv "
+                             "calls of the plain run")
+    witness = _serve_recorded(cfg, params, prompts, _reordered_wkv)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                name=cfg.name + "+f32")
+    run32 = _serve_recorded(cfg32, params, prompts, "auto")
+    plain32 = _serve_recorded(cfg32, params, prompts, "ref")
+    rows = {"bf16_witness": _compare_runs(witness, plain, math.inf)}
+    spread = max(r["prefill_logit_rel"] for r in rows["bf16_witness"])
+    if not spread > 0:
+        raise AssertionError("the reordered plain wkv left every prefill's "
+                             "logits unchanged: no witness")
+    bounds = {"bf16": WITNESS_FACTOR * spread, "f32": LOGIT_REL_F32}
+    rows["bf16"] = _compare_runs(rec, plain, bounds["bf16"])
+    rows["f32"] = _compare_runs(run32, plain32, bounds["f32"])
+    for rr in rows.values():
+        for r in rr:
+            r["prompt"] = len(prompts[r["request"]])
+
+    decode_tokens = sum(len(t) - 1 for t in run["tokens"].values())
+    # a tick's time less the prefills it admitted, each timed alone
+    decode_s = sum(t for t, _ in run["ticks"]) - sum(
+        pre_s[len(prompts[i])] for _, ids in run["ticks"] for i in ids)
+    ms_per_tick = 1e3 * statistics.median(t for t, ids in run["ticks"]
+                                          if not ids)
+    # device time inside one 2048-token prefill and one 4-slot decode step
+    tokens = torch.as_tensor(prompts[0], device=dev)[None].long()
+    cache = M.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
+    step = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.full((SERVE_SLOTS,), 100, dtype=torch.long, device=dev)
+    profiles = {
+        "prefill_2048": _profile(
+            lambda: M.prefill(params, cfg, tokens, max_len=SERVE_MAX_LEN),
+            1e3 * pre_s[len(prompts[0])]),
+        "decode_step": _profile(
+            lambda: M.decode_step(params, cfg, cache, step, pos),
+            ms_per_tick)}
+    return dict(
+        arch=cfg.name, params=n_params, init_s=init_s,
+        launches=launches, peak_gb=peak_gb, wall_s=run["wall_s"],
+        submit_s=run["submit_s"],
+        prefill_tok_per_s={n: n / pre_s[n] for n in SERVE_PROMPTS},
+        prefill_s=pre_s, decode_tokens=decode_tokens,
+        decode_ticks=len(run["ticks"]),
+        ticks_admitting=sum(1 for _, ids in run["ticks"] if ids),
+        decode_s=decode_s, decode_tok_per_s=decode_tokens / decode_s,
+        tokens_per_tick=decode_tokens / len(run["ticks"]),
+        ms_per_tick=ms_per_tick, profiles=profiles,
+        plain_prefill_s=prefill_s(cfg, "ref", 1),
+        f32_prefill_s=prefill_s(cfg32, "auto", 1),
+        shadow_checked_calls=shadow["calls"],
+        shadow_max_rel_err=shadow["max_rel_err"],
+        witness_spread=spread, logit_rel_bound=bounds, compare=rows)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -781,10 +1186,19 @@ def main() -> int:
     kernels["entropy_decode"] = check_entropy_decode(tar)
     _log("kernel entropy_decode: " + json.dumps(kernels["entropy_decode"]))
 
+    # 8. wkv_chunk at the serving path's prefill shapes
+    kernels["wkv_chunk"] = check_wkv_chunk(args.seed)
+    _log("kernel wkv_chunk: " + json.dumps(kernels["wkv_chunk"]))
+
+    # 9. serving rwkv6-3b at full width
+    serving = run_serving(args.seed)
+    _log("serving: " + json.dumps(serving))
+
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,
                "rgb2ycbcr": per_tile, "dct8x8_quant": per_tile,
-               "jpeg_inverse": read_side, "entropy_decode": read_side}
+               "jpeg_inverse": read_side, "entropy_decode": read_side,
+               "wkv_chunk": serving}
     for name, k in kernels.items():
         k["launches"] = path_of[name]["launches"][name]
         if not k["launches"]:

@@ -50,6 +50,9 @@ _ENTRIES = {
     "entropy_decode": ("entropy_decode_launch",
                        [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
                         _P]),
+    "wkv_chunk": ("wkv_chunk_launch",
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                   _P]),
 }
 
 

@@ -30,7 +30,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
 __all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
-           "dct8x8_quant", "entropy_decode"]
+           "dct8x8_quant", "entropy_decode", "wkv_chunk"]
 
 
 def _launches_kernel(x: torch.Tensor, name: str, ndim: int, impl: str,
@@ -304,3 +304,64 @@ def entropy_decode(buf: torch.Tensor, offs: torch.Tensor,
 
 
 entropy_decode.launches = 0
+
+
+#: head widths the wkv kernel is built for (a template instance each):
+#: rwkv6-3b's 64 and the smoke config's 16
+WKV_HEAD_DIMS = (16, 64)
+
+
+def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+              impl: str = "auto"):
+    """RWKV6's chunked wkv → ``(out (B, S, H, K), final_state (B, H, K, K))``.
+
+    r, k, v, logw (B, S, H, K), u (H, K) and the initial state
+    (B, H, K, K), all float32 and on one device; ``logw`` ≤ 0 is the log of
+    each position's per-channel decay. The function of
+    ``repro.models.rwkv6.wkv_chunked``: one launch walks every (batch,
+    head)'s sequence in chunks of 64 positions, any S ≥ 1. The kernel is
+    not bit-exact with its plain version (:func:`ref.wkv_chunked_ref`,
+    another order of sums): they agree to ``max|Δ| / (max|ref| + 1) <
+    5e-4``.
+    """
+    if r.dim() != 4:
+        raise ValueError(f"wkv_chunk: r must be (B, S, H, K), got "
+                         f"{tuple(r.shape)}")
+    B, S, H, K = r.shape
+    tensors = {"k": k, "v": v, "logw": logw, "u": u, "state": state}
+    shapes = {"u": (H, K), "state": (B, H, K, K)}
+    for name, t in tensors.items():
+        want = shapes.get(name, (B, S, H, K))
+        if tuple(t.shape) != want or t.device != r.device:
+            raise ValueError(f"wkv_chunk: {name} must be {want} on "
+                             f"{r.device}, got {tuple(t.shape)} on {t.device}")
+    if S == 0:
+        raise ValueError("wkv_chunk: the sequence is empty (S = 0)")
+    launch = _launches_kernel(r, "wkv_chunk", 4, impl)
+    if impl == "auto":  # the rest of the kernel's contract, on every device
+        if K not in WKV_HEAD_DIMS:
+            raise ValueError(f"wkv_chunk: the CUDA kernel takes K in "
+                             f"{WKV_HEAD_DIMS}, got {K}")
+        for name, t in tensors.items():
+            if t.dtype != torch.float32 or not t.is_contiguous():
+                raise TypeError(f"wkv_chunk: the CUDA kernel takes "
+                                f"contiguous float32; {name} is {t.dtype}, "
+                                f"contiguous={t.is_contiguous()}")
+    if not launch:
+        return ref.wkv_chunked_ref(r, k, v, logw, u, state)
+    out = torch.empty_like(r)
+    final = torch.empty_like(state)
+    if B * H == 0:
+        return out, final
+    with torch.cuda.device(r.device):
+        err = library("wkv_chunk")(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), state.data_ptr(), out.data_ptr(), final.data_ptr(),
+            B, S, H, K, _stream())
+    _raise_on_error(err, "wkv_chunk")
+    wkv_chunk.launches += 1
+    return out, final
+
+
+wkv_chunk.launches = 0

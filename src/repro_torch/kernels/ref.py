@@ -36,6 +36,14 @@ the Huffman decoder: a lockstep transliteration of
 ``repro.wsi.entropy_jax._lockstep`` that advances every tile's scan by one
 symbol per step, keeps each lane's first failure, and writes the
 coefficients in place exactly as the per-lane CUDA kernel does.
+
+:func:`wkv_chunked_ref` is the plain version of the one float kernel that
+is not bit-exact, RWKV6's chunked wkv: a transcription of
+``repro.models.rwkv6.wkv_chunked`` (sub-block factored, every decay
+``exp(Δ)`` with Δ ≤ 0). The CUDA kernel evaluates the same function in
+another order of sums (each pair of positions of a chunk with its own
+log-decay difference), so the two agree to the reference's own bound,
+``max|Δ| / (max|ref| + 1) < 5e-4``, not bit for bit.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ __all__ = [
     "rgb2ycbcr_ref", "dct8x8_quant_ref", "jpeg_quotient_ref",
     "jpeg_transform_ref", "idct_dequant_blocks", "jpeg_inverse_ref",
     "downsample2x2_ref", "downsample2x2_q_ref", "entropy_decode_ref",
-    "ERR_INVALID", "ERR_RUN", "ERR_TRUNC",
+    "ERR_INVALID", "ERR_RUN", "ERR_TRUNC", "wkv_chunked_ref",
 ]
 
 # ITU-T81 Annex K quantization tables (quality 50)
@@ -362,3 +370,70 @@ def entropy_decode_ref(buf, offs, nbits, lut, H: int, W: int):
         step += 1
         if step % 16 == 0 and not bool(live.any()):
             return coef, stop, err_kind
+
+
+def wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 64, sub: int = 16):
+    """RWKV6's chunked wkv: ``(out (B, S, H, K), final_state (B, H, K, K))``.
+
+    All float32. r/k/v/logw: (B, S, H, K); u: (H, K); state: (B, H, K, V=K).
+    A transcription of ``repro.models.rwkv6.wkv_chunked``, its fallbacks
+    included: the chunk is the whole sequence (``Q = S``) when ``S % chunk``,
+    and the sub-block the whole chunk when ``Q % sub`` (so a length that is
+    not a multiple of ``chunk`` builds a (B, 1, S, S, H, K) tensor). The
+    decay from position s to a later t is factored through the boundary of
+    t's sub-block, so every exponent is ≤ 0.
+    """
+    B, S, H, K = r.shape
+    Q = min(chunk, S)
+    if S % Q:
+        Q = S
+    q = min(sub, Q)
+    if Q % q:
+        q = Q
+    ns = Q // q
+    dev = r.device
+    smask = (torch.arange(Q, device=dev)[None, :]
+             < (torch.arange(ns, device=dev) * q)[:, None])  # (ns, Q)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev), -1)
+    outs = []
+    for c0 in range(0, S, Q):
+        rc, kc, vc, lw = (t[:, c0:c0 + Q] for t in (r, k, v, logw))
+        L = torch.cumsum(lw, dim=1)  # inclusive log-decay
+        Lex = L - lw  # exclusive
+        Lend = L[:, -1]  # (B, H, K)
+
+        # inter-chunk: the carried state projected onto every position
+        out = torch.einsum("bqhk,bhkv->bqhv", rc * torch.exp(Lex), state)
+
+        # cross-sub-block (within the chunk), boundary-factored
+        Lb = torch.cat([torch.zeros((B, 1, H, K), dtype=L.dtype, device=dev),
+                        L[:, q - 1::q][:, :ns - 1]], dim=1)  # (B, ns, H, K)
+        rg = rc.reshape(B, ns, q, H, K)
+        Lexg = Lex.reshape(B, ns, q, H, K)
+        r2 = rg * torch.exp(torch.clamp(Lexg - Lb[:, :, None], max=0.0))
+        k2 = kc[:, None] * torch.exp(
+            torch.clamp(Lb[:, :, None] - L[:, None], max=0.0))  # (B,ns,Q,H,K)
+        att_x = torch.einsum("bjthk,bjshk->bjhts", r2, k2)
+        att_x = att_x * smask[None, :, None, None, :]
+        out_x = torch.einsum("bjhts,bshv->bjthv", att_x, vc)
+        out = out + out_x.reshape(B, Q, H, K)
+
+        # diagonal sub-blocks: explicit log-difference (t, s in one block)
+        kg = kc.reshape(B, ns, q, H, K)
+        vg = vc.reshape(B, ns, q, H, K)
+        Lg = L.reshape(B, ns, q, H, K)
+        Ldiff = torch.clamp(Lexg[:, :, :, None] - Lg[:, :, None], max=0.0)
+        dec = torch.where(tri[None, None, :, :, None, None], torch.exp(Ldiff),
+                          0.0)  # (B, ns, t, s, H, K)
+        att_d = torch.einsum("bjthk,bjshk,bjtshk->bjhts", rg, kg, dec)
+        out_d = torch.einsum("bjhts,bjshv->bjthv", att_d, vg)
+        # the u bonus on the diagonal (s == t)
+        out_u = (rg * u[None, None, None] * kg).sum(-1, keepdim=True) * vg
+        out = out + (out_d + out_u).reshape(B, Q, H, K)
+
+        # state update
+        kdec = kc * torch.exp(torch.clamp(Lend[:, None] - L, max=0.0))
+        state = state * torch.exp(Lend)[..., None] + torch.einsum(
+            "bqhk,bqhv->bhkv", kdec, vc)
+        outs.append(out)
+    return torch.cat(outs, dim=1), state

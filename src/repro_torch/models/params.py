@@ -1,0 +1,114 @@
+"""Declarative parameter definitions.
+
+Every model declares its parameters as a nested dict of ``ParamDef``
+(shape + logical axis names + dtype), as ``repro.models.params`` does. From
+that one declaration come the materialized tensors (:func:`materialize`)
+and the analytic parameter count (:func:`count_params`). The nested dicts
+are walked in sorted key order, the order ``jax.tree_util`` flattens them
+in.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Iterator
+
+import numpy as np
+import torch
+
+__all__ = ["ParamDef", "materialize", "count_params", "tree_defs",
+           "tree_map"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative description of one parameter tensor."""
+
+    shape: tuple[int, ...]
+    logical: tuple[str, ...]  # logical axis name per dim ("" = never sharded)
+    dtype: Any = torch.bfloat16
+    init: str = "normal"  # normal | zeros | ones | small
+    scale: float | None = None  # stddev override for "normal"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(
+                f"shape {self.shape} and logical axes {self.logical} rank mismatch"
+            )
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape)) if self.shape else 1
+
+
+def tree_defs(tree, path: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], Any]]:
+    """``(path, leaf)`` for every leaf of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_defs(tree[key], path + (key,))
+    else:
+        yield path, tree
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` leaf by leaf over nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        for other in rest:
+            if not isinstance(other, dict) or set(other) != set(tree):
+                raise ValueError(f"tree structures differ: {sorted(tree)} vs "
+                                 f"{sorted(other) if isinstance(other, dict) else type(other)}")
+        return {k: tree_map(fn, tree[k], *(o[k] for o in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
+def _fan_in(d: ParamDef) -> int:
+    if not d.shape:
+        return 1
+    if len(d.shape) == 1:
+        return d.shape[0]
+    # weights are stored (in_dims..., out_dims...) by convention; treat all but
+    # the final axis as fan-in, skipping a leading stacked-layer axis.
+    dims = d.shape[:-1]
+    if d.logical and d.logical[0] == "layers":
+        dims = dims[1:] or (1,)
+    return int(np.prod(dims))
+
+
+def materialize(defs, generator: torch.Generator, device,
+                dtype_override=None):
+    """Initialize real parameter tensors for a ParamDef tree on ``device``.
+
+    ``normal`` draws N(0, std²) in float32 from ``generator`` (which must
+    live on ``device``) with std = ``scale`` or ``1/sqrt(fan_in)``, ``small``
+    draws with std 0.02, ``zeros``/``ones`` fill; each leaf is then cast to
+    its dtype (or ``dtype_override``). The numbers differ from
+    ``repro``'s ``jax.random`` draws for the same seed; the rules are the
+    same.
+    """
+    device = torch.device(device)
+
+    def make(d: ParamDef) -> torch.Tensor:
+        dtype = dtype_override or d.dtype
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=device)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=device)
+        std = d.scale if d.scale is not None else 1.0 / math.sqrt(max(_fan_in(d), 1))
+        if d.init == "small":
+            std = 0.02
+        arr = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                          device=device)
+        return arr.mul_(std).to(dtype)
+
+    out: dict = {}
+    for path, d in tree_defs(defs):  # sorted order: draws are reproducible
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = make(d)
+    return out
+
+
+def count_params(defs) -> int:
+    return sum(d.size for _, d in tree_defs(defs))

@@ -1,5 +1,6 @@
 """The port on a CUDA card: each kernel vs its plain version, the
-converter and the decoders on the card vs their CPU plain paths. Every
+converter, the decoders and the RWKV6 serving path on the card vs their
+CPU plain paths. Every
 test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a GPU machine that has none:
 
@@ -11,7 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.models import model as M
+from repro_torch.models.params import tree_map
+from repro_torch.serve import ContinuousBatchingEngine, Request
 from repro_torch.wsi import (ConvertOptions, SyntheticScanner,
                              convert_wsi_to_dicom, open_slide)
 from repro_torch.wsi import jpeg as P
@@ -187,3 +192,95 @@ def test_per_tile_conversion_on_card_matches_batched(cuda_device):
             ops.dct8x8_quant.launches - n0[1]) == (frames, 3 * frames)
     assert per_tile == run(device=cuda_device)
     assert per_tile == run(device="cpu", batched=False)
+
+
+# the reference's bound for its wkv kernel (tests/test_kernels.py)
+WKV_BOUND = 5e-4
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / (want.abs().max() + 1.0))
+
+
+def _wkv_inputs(shape, decay_max: float, seed: int, device):
+    rng = np.random.default_rng(seed)
+    B, S, H, K = shape
+    r, k, v = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    logw = -rng.uniform(0.005, decay_max, shape).astype(np.float32)
+    u = rng.normal(size=(H, K)).astype(np.float32)
+    state = (0.2 * rng.normal(size=(B, H, K, K))).astype(np.float32)
+    return [torch.from_numpy(a).to(device)
+            for a in (r, k, v, logw, u, state)]
+
+
+@pytest.mark.parametrize("shape", [(1, 2048, 40, 64), (1, 200, 40, 64),
+                                   (2, 70, 3, 16), (1, 130, 2, 16),
+                                   (3, 5, 2, 16), (1, 1, 2, 64)])
+@pytest.mark.parametrize("decay_max", [2.0, 25.0])
+def test_wkv_chunk_kernel_matches_plain(cuda_device, shape, decay_max):
+    a = _wkv_inputs(shape, decay_max, sum(shape), cuda_device)
+    n0 = ops.wkv_chunk.launches
+    out, state = ops.wkv_chunk(*a)
+    assert ops.wkv_chunk.launches == n0 + 1
+    want_out, want_state = ops.wkv_chunk(*a, impl="ref")
+    torch.cuda.synchronize()
+    for got, want in ((out, want_out), (state, want_state)):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        assert _rel(got, want) < WKV_BOUND
+
+
+def test_wkv_chunk_kernel_extreme_decays_stay_finite(cuda_device):
+    """logw at -1e8 and spread over the clip's range (ROADMAP F9): every
+    decay is exp(Δ) with Δ ≤ 0, so the kernel makes no inf or NaN."""
+    r, k, v, logw, u, state = _wkv_inputs((1, 300, 4, 64), 2.0, 9,
+                                          cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    wide = -torch.exp(40 * torch.rand(logw.shape, generator=gen,
+                                      device=cuda_device) - 20)
+    for lw in (torch.full_like(logw, -1e8), wide):
+        out, st = ops.wkv_chunk(r, k, v, lw, u, state)
+        assert bool(torch.isfinite(out).all() and torch.isfinite(st).all())
+
+
+def test_rwkv_smoke_prefill_and_decode_on_card_match_cpu(cuda_device):
+    """The f32 smoke model: the card (wkv kernel, cuBLAS) vs the CPU plain
+    path, to 1e-4 on logits and state (summation orders; one bf16 spacing,
+    2**-7, on the bf16 token shifts)."""
+    cfg = get_config("rwkv6-3b-smoke")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 100))).long()
+    n0 = ops.wkv_chunk.launches
+    got, got_cache = M.prefill(card, cfg, tokens.to(cuda_device), max_len=256)
+    assert ops.wkv_chunk.launches == n0 + cfg.num_layers
+    want, want_cache = M.prefill(params, cfg, tokens, max_len=256)
+    assert _rel(got, want) < 1e-4
+    for key, t in got_cache["rwkv"].items():
+        bound = 1e-4 if t.dtype == torch.float32 else 2.0 ** -7
+        assert _rel(t, want_cache["rwkv"][key]) < bound, key
+    tok = torch.tensor([[3], [7]])
+    pos = torch.tensor([100, 100])
+    got, _ = M.decode_step(card, cfg, got_cache, tok.to(cuda_device),
+                           pos.to(cuda_device))
+    want, _ = M.decode_step(params, cfg, want_cache, tok, pos)
+    assert _rel(got, want) < 1e-4
+
+
+def test_rwkv_smoke_engine_on_card_matches_cpu(cuda_device):
+    cfg = get_config("rwkv6-3b-smoke")
+    params = M.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 70, 9)]
+    runs = []
+    for p in (tree_map(lambda t: t.to(cuda_device), params), params):
+        eng = ContinuousBatchingEngine(cfg, p, batch_size=2, max_len=128)
+        got = {}
+        for i, prompt in enumerate(prompts):
+            eng.submit(Request(prompt=prompt, max_new_tokens=6,
+                               done=lambda t, i=i: got.update({i: t})))
+        eng.run_until_drained()
+        runs.append(got)
+    assert runs[0] == runs[1]
