@@ -54,7 +54,9 @@ raises (exit code ≠ 0) on any failed check:
    path's prefill shape (1, 2048, 40, 64) and a tail shape (1, 200, 40,
    64), from a random state, decays drawn as tests/test_kernels.py draws
    them (up to 2 and 25): output and final state within the reference's
-   bound ``max|Δ| / (max|plain| + 1) < 5e-4``; timed beside its bound;
+   bound ``max|Δ| / (max|plain| + 1) < 5e-4``; timed beside its bound,
+   with the device time of each of the three kernels a call launches
+   (``passes_ms``, by ``torch.profiler``);
 9. serving — ``rwkv6-3b`` at full width (3.1 B parameters in bf16, random
    from a seeded generator) in the continuous-batching engine, 4 slots,
    ``max_len`` 4096, six greedy requests of 32 new tokens with prompts of
@@ -78,7 +80,9 @@ raises (exit code ≠ 0) on any failed check:
    part, which is allowed only where the plain run's top-2 logit gap is
    below twice the bound times the step's largest logit. One 2048-token
    prefill and one decode step are then profiled (``torch.profiler``):
-   kernel time beside the host wall time, the device's busy share.
+   kernel time beside the host wall time, the device's busy share, and
+   the prefill's ``wkv_ms`` / ``wkv_share``: the summed device time of the
+   kernels ``wkv_chunk`` launches (three a layer) and its share.
 
 Prints the kernel JSON line and the card line before the last line, which
 is ``{"ok": true, "device": {...}}``.
@@ -88,6 +92,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +115,8 @@ KERNELS = ("downsample2x2", "jpeg_transform", "jpeg_inverse", "rgb2ycbcr",
            "dct8x8_quant", "entropy_decode", "wkv_chunk")
 # the reference's bound for its wkv kernel (tests/test_kernels.py)
 WKV_BOUND = 5e-4
+# what the names of the kernels that one wkv_chunk call launches contain
+WKV_KERNEL_MATCH = "wkv_pass"
 # serving: prompt lengths (their plain prefill stays small: a length that
 # is not a multiple of 64 makes the plain wkv build an (S, S, H, K) tensor,
 # 100 MB at S = 100), new tokens, slots, max_len
@@ -803,10 +810,15 @@ def check_wkv_chunk(seed: int) -> dict:
                 rels.append(rel)
                 errs.append(float((g - p).abs().max()))
             if decay_max == 2.0:
-                timed[shape] = (
-                    _time_ms(lambda: ops.wkv_chunk(*a)),
-                    _time_ms(lambda: ops.wkv_chunk(*a, impl="ref"), reps=3,
-                             warmup=1))
+                # ms: one call alone, the wrapper's host work included;
+                # back_to_back_ms: per call of 50 in a row, the device's
+                # time wherever it is slower than the host's
+                timed[shape] = dict(
+                    ms=_time_ms(lambda: ops.wkv_chunk(*a)),
+                    back_to_back_ms=_per_call_ms(lambda: ops.wkv_chunk(*a),
+                                                 calls=50),
+                    plain_ms=_time_ms(lambda: ops.wkv_chunk(*a, impl="ref"),
+                                      reps=3, warmup=1))
             del a, got, plain
             torch.cuda.empty_cache()
 
@@ -820,16 +832,33 @@ def check_wkv_chunk(seed: int) -> dict:
         nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
         return _bound(nbytes, B * S * H * (5.0 * K * K + 6.0 * K))
 
+    # each of the call's kernels at the main shape, by the profiler
+    a = _wkv_inputs(main, 2.0, gen)
+    passes_ms = {}
+    for key, ms, calls in _device_kernels(lambda: ops.wkv_chunk(*a), 20):
+        if WKV_KERNEL_MATCH in key:
+            name = re.search(WKV_KERNEL_MATCH + r"\w*", key).group(0)
+            passes_ms[name] = ms / 20
+    if len(passes_ms) != ops.WKV_KERNELS_PER_CALL:
+        raise AssertionError(f"wkv_chunk: the profiler saw kernels "
+                             f"{sorted(passes_ms)}, expected "
+                             f"{ops.WKV_KERNELS_PER_CALL}")
+    del a
     b_main, b_tail = bound(main), bound(tail)
     return dict(
         name="wkv_chunk", route="cuda",
         source="src/repro_torch/kernels/csrc/wkv_chunk.cu",
         replaces="src/repro/kernels/wkv_chunk.py:92",
         max_abs_err=max(errs), max_rel_err=max(rels),
-        rel_bound=WKV_BOUND, ms=timed[main][0], plain_ms=timed[main][1],
-        bound_ms=b_main[0], bound_by=b_main[1], library_ms=None,
-        shape=list(main), tail_shape=list(tail), tail_ms=timed[tail][0],
-        tail_plain_ms=timed[tail][1], tail_bound_ms=b_tail[0])
+        rel_bound=WKV_BOUND, ms=timed[main]["ms"],
+        plain_ms=timed[main]["plain_ms"], bound_ms=b_main[0],
+        bound_by=b_main[1], library_ms=None,
+        back_to_back_ms=timed[main]["back_to_back_ms"],
+        kernels_per_call=ops.WKV_KERNELS_PER_CALL, passes_ms=passes_ms,
+        scratch_mb=4e-6 * ops.wkv_scratch_floats(*main),
+        shape=list(main), tail_shape=list(tail), tail_ms=timed[tail]["ms"],
+        tail_back_to_back_ms=timed[tail]["back_to_back_ms"],
+        tail_plain_ms=timed[tail]["plain_ms"], tail_bound_ms=b_tail[0])
 
 
 def _requests(prompts, tokens: dict, max_new: int):
@@ -930,10 +959,10 @@ def _reordered_wkv(*a):
     return ref.wkv_chunked_ref(*a, chunk=32, sub=8)
 
 
-def _profile(fn, wall_ms: float) -> dict:
-    """Kernel time inside one call of ``fn`` by ``torch.profiler`` (the sum
-    of every kernel's device time), beside the call's unprofiled host wall
-    time ``wall_ms``: their ratio is the device's busy share."""
+def _device_kernels(fn, calls: int = 1) -> list:
+    """``(name, device ms, launches)`` of every kernel that ``calls`` calls
+    of ``fn`` launch (after one unprofiled call), by ``torch.profiler``,
+    longest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -941,17 +970,30 @@ def _profile(fn, wall_ms: float) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     rows = []  # the kernels themselves (an operator's entry repeats them)
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((e.key, e.self_device_time_total / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def _profile(fn, wall_ms: float) -> dict:
+    """Kernel time inside one call of ``fn`` (the sum of every kernel's
+    device time), beside the call's unprofiled host wall time ``wall_ms``:
+    their ratio is the device's busy share. ``wkv_ms`` sums the kernels
+    that ``wkv_chunk`` launches (``wkv_share`` of the device time)."""
+    rows = _device_kernels(fn)
     device_ms = sum(r[1] for r in rows)
+    wkv = [r for r in rows if WKV_KERNEL_MATCH in r[0]]
+    wkv_ms = sum(r[1] for r in wkv)
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms,
                 kernels=sum(r[2] for r in rows),
+                wkv_ms=wkv_ms, wkv_share=wkv_ms / device_ms,
+                wkv_kernels=sum(r[2] for r in wkv),
                 top=[dict(name=n[:90], ms=ms, calls=c)
                      for n, ms, c in rows[:6]])
 
@@ -1098,6 +1140,12 @@ def run_serving(seed: int) -> dict:
         "decode_step": _profile(
             lambda: M.decode_step(params, cfg, cache, step, pos),
             ms_per_tick)}
+    from repro_torch.kernels import ops
+    want_wkv = cfg.num_layers * ops.WKV_KERNELS_PER_CALL
+    if profiles["prefill_2048"]["wkv_kernels"] != want_wkv:
+        raise AssertionError(f"the profiled prefill launched "
+                             f"{profiles['prefill_2048']['wkv_kernels']} "
+                             f"wkv kernels, expected {want_wkv}")
     return dict(
         arch=cfg.name, params=n_params, init_s=init_s,
         launches=launches, peak_gb=peak_gb, wall_s=run["wall_s"],

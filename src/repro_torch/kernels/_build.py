@@ -51,8 +51,8 @@ _ENTRIES = {
                        [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
                         _P]),
     "wkv_chunk": ("wkv_chunk_launch",
-                  [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                   _P]),
+                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                   _I64, _P]),
 }
 
 

@@ -30,7 +30,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
 __all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
-           "dct8x8_quant", "entropy_decode", "wkv_chunk"]
+           "dct8x8_quant", "entropy_decode", "wkv_chunk",
+           "wkv_scratch_floats", "wkv_scratch_views"]
 
 
 def _launches_kernel(x: torch.Tensor, name: str, ndim: int, impl: str,
@@ -309,21 +310,70 @@ entropy_decode.launches = 0
 #: head widths the wkv kernel is built for (a template instance each):
 #: rwkv6-3b's 64 and the smoke config's 16
 WKV_HEAD_DIMS = (16, 64)
+#: positions per chunk of the wkv kernel's passes
+WKV_CHUNK = 64
+#: kernels one ``wkv_chunk`` call launches on a CUDA tensor
+WKV_KERNELS_PER_CALL = 3
+
+
+def _check_aligned(t: torch.Tensor, what: str) -> None:
+    """The wkv kernel moves r, k, v, logw and its scratch in 16-byte pieces
+    (``cp.async``), so their data must start on a 16-byte boundary: a
+    contiguous view at an offset that is not a multiple of 4 floats would
+    fault on the card and poison its context."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must start on a 16-byte boundary (the "
+                         f"kernel reads it in 16-byte pieces); this view "
+                         f"starts {t.data_ptr() % 16} bytes past one")
+
+
+def wkv_scratch_floats(B: int, S: int, H: int, K: int) -> int:
+    """Floats of scratch a ``wkv_chunk`` kernel call uses: per (b, h) and
+    chunk the state increment dS and the state handed in S_{c−1} (K × K
+    each) and the chunk's decay exp(Lend) (K)."""
+    nc = -(-S // WKV_CHUNK)
+    return B * H * nc * K * (2 * K + 1)
+
+
+def wkv_scratch_views(scratch: torch.Tensor, B: int, S: int, H: int,
+                      K: int) -> dict:
+    """The kernel's scratch as ``dS`` and ``s_in`` (B, H, nc, K, K) and
+    ``decay`` (B, H, nc, K), the layout of
+    :func:`ref.wkv_chunk_passes_ref`'s results of the same names."""
+    nc = -(-S // WKV_CHUNK)
+    n = B * H * nc * K * K
+    return dict(dS=scratch[:n].view(B, H, nc, K, K),
+                s_in=scratch[n:2 * n].view(B, H, nc, K, K),
+                decay=scratch[2 * n:2 * n + B * H * nc * K].view(B, H, nc, K))
 
 
 def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-              impl: str = "auto"):
+              impl: str = "auto", scratch: torch.Tensor | None = None):
     """RWKV6's chunked wkv → ``(out (B, S, H, K), final_state (B, H, K, K))``.
 
     r, k, v, logw (B, S, H, K), u (H, K) and the initial state
-    (B, H, K, K), all float32 and on one device; ``logw`` ≤ 0 is the log of
+    (B, H, K, K), all float32 and on one device, r, k, v and logw starting
+    on a 16-byte boundary (a view at another offset raises
+    ``ValueError``); ``logw`` ≤ 0 is the log of
     each position's per-channel decay. The function of
-    ``repro.models.rwkv6.wkv_chunked``: one launch walks every (batch,
-    head)'s sequence in chunks of 64 positions, any S ≥ 1. The kernel is
-    not bit-exact with its plain version (:func:`ref.wkv_chunked_ref`,
-    another order of sums): they agree to ``max|Δ| / (max|ref| + 1) <
-    5e-4``.
+    ``repro.models.rwkv6.wkv_chunked``, any S ≥ 1.
+
+    On a CUDA tensor one call launches :data:`WKV_KERNELS_PER_CALL` (3)
+    kernels on the current stream, and counts once in ``launches``: the
+    per-chunk state increments (B·H·⌈S/64⌉ CTAs), the elementwise state
+    scan over the chunks, and the outputs (B·H·⌈S/64⌉ CTAs; intra-chunk
+    terms and the carried state, the products on the tensor cores in
+    3×TF32). They pass :func:`wkv_scratch_floats` float32 of scratch
+    (42.3 MB at (1, 2048, 40, 64)), allocated here with ``torch.empty``
+    unless the caller passes ``scratch`` (contiguous float32 of at least
+    that size on the same card, 16-byte aligned; :func:`wkv_scratch_views`
+    reads it). The
+    kernel is not bit-exact with its plain version
+    (:func:`ref.wkv_chunked_ref`, another order of sums; the passes are
+    mirrored by :func:`ref.wkv_chunk_passes_ref`): they agree to
+    ``max|Δ| / (max|ref| + 1) < 5e-4`` (ROADMAP F7). A launch that fails
+    raises; there is no fallback to the plain version.
     """
     if r.dim() != 4:
         raise ValueError(f"wkv_chunk: r must be (B, S, H, K), got "
@@ -348,17 +398,27 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 raise TypeError(f"wkv_chunk: the CUDA kernel takes "
                                 f"contiguous float32; {name} is {t.dtype}, "
                                 f"contiguous={t.is_contiguous()}")
+        for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+            _check_aligned(t, f"wkv_chunk: {name}")
     if not launch:
         return ref.wkv_chunked_ref(r, k, v, logw, u, state)
     out = torch.empty_like(r)
     final = torch.empty_like(state)
     if B * H == 0:
         return out, final
+    need = wkv_scratch_floats(B, S, H, K)
+    if scratch is None:
+        scratch = torch.empty(need, dtype=torch.float32, device=r.device)
+    elif (scratch.dtype != torch.float32 or scratch.device != r.device
+          or not scratch.is_contiguous() or scratch.numel() < need):
+        raise ValueError(f"wkv_chunk: scratch must be contiguous float32 of "
+                         f"at least {need} elements on {r.device}")
+    _check_aligned(scratch, "wkv_chunk: scratch")
     with torch.cuda.device(r.device):
         err = library("wkv_chunk")(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
             u.data_ptr(), state.data_ptr(), out.data_ptr(), final.data_ptr(),
-            B, S, H, K, _stream())
+            scratch.data_ptr(), B, S, H, K, _stream())
     _raise_on_error(err, "wkv_chunk")
     wkv_chunk.launches += 1
     return out, final

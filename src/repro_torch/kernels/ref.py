@@ -41,9 +41,13 @@ coefficients in place exactly as the per-lane CUDA kernel does.
 is not bit-exact, RWKV6's chunked wkv: a transcription of
 ``repro.models.rwkv6.wkv_chunked`` (sub-block factored, every decay
 ``exp(Δ)`` with Δ ≤ 0). The CUDA kernel evaluates the same function in
-another order of sums (each pair of positions of a chunk with its own
-log-decay difference), so the two agree to the reference's own bound,
+another order of sums (chunks of 64 with a zero-padded tail, the state
+carried between them by a scan, the products on the tensor cores in
+3×TF32), so the two agree to the reference's own bound,
 ``max|Δ| / (max|ref| + 1) < 5e-4``, not bit for bit.
+:func:`wkv_chunk_passes_ref` mirrors the kernel's own decomposition, pass
+by pass (per-chunk state increments, the state scan, the outputs), so its
+chunk indexing, tail and state hand-off are checked on the CPU.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ __all__ = [
     "jpeg_transform_ref", "idct_dequant_blocks", "jpeg_inverse_ref",
     "downsample2x2_ref", "downsample2x2_q_ref", "entropy_decode_ref",
     "ERR_INVALID", "ERR_RUN", "ERR_TRUNC", "wkv_chunked_ref",
+    "wkv_chunk_passes_ref",
 ]
 
 # ITU-T81 Annex K quantization tables (quality 50)
@@ -437,3 +442,78 @@ def wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 64, sub: int = 16):
             "bqhk,bqhv->bhkv", kdec, vc)
         outs.append(out)
     return torch.cat(outs, dim=1), state
+
+
+def wkv_chunk_passes_ref(r, k, v, logw, u, state, chunk: int = 64,
+                         sub: int = 16) -> dict:
+    """The CUDA kernel's passes over RWKV6's chunked wkv, in plain torch.
+
+    Same inputs as :func:`wkv_chunked_ref`. The sequence is cut into
+    ``nc = ceil(S / chunk)`` chunks, the tail zero-padded (r = k = v = 0,
+    logw = 0: it neither decays the state nor adds to it). Per chunk c, L
+    is the inclusive log-decay prefix sum, ``Lex[t] = L[t - 1]`` (0 at
+    t = 0) the exclusive one, ``Lend = L[chunk - 1]``:
+
+    1. ``dS[c] = (k ⊙ exp(Lend − L))ᵀ v`` and ``decay[c] = exp(Lend)``;
+    2. the scan, the only step in chunk order: ``s_in[c] = S_{c−1}``,
+       ``S_c = decay[c] ⊙ S_{c−1} + dS[c]`` (per row of the state);
+    3. ``out_c = A v + (r ⊙ exp(Lex)) s_in[c]``, with A lower-triangular:
+       below the diagonal sub-blocks ``r exp(Lex − Lb) · k exp(Lb − L)``
+       factored through the start ``Lb`` of t's sub-block, on them the
+       per-pair ``Σ r_t k_s exp(Lex_t − L_s)`` and the u bonus at s = t.
+
+    Every exponent is clamped ≤ 0. Returns ``dict(out (B, S, H, K),
+    final_state (B, H, K, K), dS (B, H, nc, K, K), decay (B, H, nc, K),
+    s_in (B, H, nc, K, K))``: the kernel's outputs and its scratch.
+    """
+    B, S, H, K = r.shape
+    nc = -(-S // chunk)
+    ns = chunk // sub
+    dev = r.device
+
+    def tiles(t):  # (B, S, H, K) -> (B, H, nc, chunk, K), zero-padded
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, nc * chunk - S))
+        return t.reshape(B, nc, chunk, H, K).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lw = (tiles(t) for t in (r, k, v, logw))
+    L = torch.cumsum(lw, dim=3)
+    Lex = torch.cat([torch.zeros_like(L[..., :1, :]), L[..., :-1, :]], dim=3)
+    Lend = L[..., -1, :]  # (B, H, nc, K)
+
+    # pass 1: each chunk's state increment and decay
+    kdec = kc * torch.exp(torch.clamp(Lend[..., None, :] - L, max=0.0))
+    dS = torch.einsum("bhnsk,bhnsv->bhnkv", kdec, vc)
+    decay = torch.exp(torch.clamp(Lend, max=0.0))
+
+    # pass 2: the state scan
+    s_in, s = [], state
+    for c in range(nc):
+        s_in.append(s)
+        s = decay[:, :, c, :, None] * s + dS[:, :, c]
+    s_in = torch.stack(s_in, dim=2)
+
+    # pass 3: A (cross-sub-block entries factored through Lb, per-pair
+    # decays on the diagonal sub-blocks, the u bonus), then A v + r~ s_in
+    Lb = Lex[..., ::sub, :]  # (B, H, nc, ns, K)
+    rg, kg, Lexg, Lg = (t.reshape(B, H, nc, ns, sub, K)
+                        for t in (rc, kc, Lex, L))
+    r2 = rg * torch.exp(torch.clamp(Lexg - Lb[..., None, :], max=0.0))
+    k2 = kc[:, :, :, None] * torch.exp(
+        torch.clamp(Lb[..., None, :] - L[:, :, :, None], max=0.0))
+    smask = (torch.arange(chunk, device=dev)[None, :]
+             < (torch.arange(ns, device=dev) * sub)[:, None])  # (ns, chunk)
+    A = torch.einsum("bhnjtk,bhnjsk->bhnjts", r2, k2) * smask[:, None, :]
+    tri = torch.tril(torch.ones((sub, sub), dtype=torch.bool, device=dev), -1)
+    dec = torch.where(tri[..., None], torch.exp(torch.clamp(
+        Lexg[..., :, None, :] - Lg[..., None, :, :], max=0.0)), 0.0)
+    diag = torch.einsum("bhnjtk,bhnjsk,bhnjtsk->bhnjts", rg, kg, dec)
+    bonus = (rg * u[None, :, None, None, None] * kg).sum(-1)
+    diag = diag + torch.diag_embed(bonus)
+    for j in range(ns):
+        A[..., j, :, j * sub:(j + 1) * sub] = diag[..., j, :, :]
+    A = A.reshape(B, H, nc, chunk, chunk)
+    out = torch.einsum("bhnts,bhnsv->bhntv", A, vc) + torch.einsum(
+        "bhntk,bhnkv->bhntv", rc * torch.exp(torch.clamp(Lex, max=0.0)),
+        s_in)
+    out = out.permute(0, 2, 3, 1, 4).reshape(B, nc * chunk, H, K)[:, :S]
+    return dict(out=out, final_state=s, dS=dS, decay=decay, s_in=s_in)

@@ -196,6 +196,12 @@ def test_per_tile_conversion_on_card_matches_batched(cuda_device):
 
 # the reference's bound for its wkv kernel (tests/test_kernels.py)
 WKV_BOUND = 5e-4
+# the kernel's passes vs their plain mirror (the same chunking, so the
+# products' rounding and the order of a few sums part them), between the
+# readings on an H100 of the 3xTF32 kernel (at most 1.75e-5, dS at decay
+# 25) and of the kernel with each product cut to one TF32 mma (at least
+# 2.3e-4), which F7's WKV_BOUND does not tell apart at every shape
+MIRROR_BOUND = 6e-5
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -216,7 +222,9 @@ def _wkv_inputs(shape, decay_max: float, seed: int, device):
 
 @pytest.mark.parametrize("shape", [(1, 2048, 40, 64), (1, 200, 40, 64),
                                    (2, 70, 3, 16), (1, 130, 2, 16),
-                                   (3, 5, 2, 16), (1, 1, 2, 64)])
+                                   (3, 5, 2, 16), (1, 1, 2, 64),
+                                   (1, 64, 40, 64), (2, 65, 3, 64),
+                                   (4, 256, 8, 64), (1, 1023, 2, 16)])
 @pytest.mark.parametrize("decay_max", [2.0, 25.0])
 def test_wkv_chunk_kernel_matches_plain(cuda_device, shape, decay_max):
     a = _wkv_inputs(shape, decay_max, sum(shape), cuda_device)
@@ -228,6 +236,54 @@ def test_wkv_chunk_kernel_matches_plain(cuda_device, shape, decay_max):
     for got, want in ((out, want_out), (state, want_state)):
         assert got.shape == want.shape and bool(torch.isfinite(got).all())
         assert _rel(got, want) < WKV_BOUND
+
+
+@pytest.mark.parametrize("shape", [(2, 200, 3, 64), (3, 130, 2, 16),
+                                   (1, 64, 4, 64), (2, 1, 2, 16)])
+@pytest.mark.parametrize("decay_max", [2.0, 25.0])
+def test_wkv_chunk_scratch_matches_passes_mirror(cuda_device, shape,
+                                                 decay_max):
+    """Each pass on its own: the state increments and decays (pass 1), the
+    states handed to each chunk and the final state (pass 2) and the
+    outputs (pass 3), read from the kernel's scratch, vs the plain mirror
+    of the passes (ref.wkv_chunk_passes_ref) on the card, within
+    MIRROR_BOUND: float32-accurate products, not plain TF32."""
+    from repro_torch.kernels import ref
+    a = _wkv_inputs(shape, decay_max, 3 * sum(shape), cuda_device)
+    scratch = torch.full((ops.wkv_scratch_floats(*shape),), float("nan"),
+                         device=cuda_device)
+    out, state = ops.wkv_chunk(*a, scratch=scratch)
+    got = dict(ops.wkv_scratch_views(scratch, *shape), out=out,
+               final_state=state)
+    want = ref.wkv_chunk_passes_ref(*a)
+    torch.cuda.synchronize()
+    rels = {}
+    for name in ("dS", "decay", "s_in", "final_state", "out"):
+        assert got[name].shape == want[name].shape, name
+        assert bool(torch.isfinite(got[name]).all()), name
+        rels[name] = _rel(got[name], want[name])
+    print(f"mirror {shape} decays up to {decay_max}: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in rels.items()))
+    for name, rel in rels.items():
+        assert rel < MIRROR_BOUND, (name, rel)
+
+
+def test_wkv_chunk_rejects_views_off_a_16_byte_boundary(cuda_device):
+    """A contiguous view one float into its storage, as an input or as the
+    scratch, raises before any launch, and the card goes on working."""
+    a = _wkv_inputs((1, 130, 2, 64), 2.0, 5, cuda_device)
+    want, _ = ops.wkv_chunk(*a)
+    buf = torch.cat([torch.zeros(1, device=cuda_device), a[0].reshape(-1)])
+    n0 = ops.wkv_chunk.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.wkv_chunk(buf[1:].view(a[0].shape), *a[1:])
+    scratch = torch.empty(ops.wkv_scratch_floats(1, 130, 2, 64) + 4,
+                          device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.wkv_chunk(*a, scratch=scratch[1:])
+    assert ops.wkv_chunk.launches == n0
+    got, _ = ops.wkv_chunk(*a, scratch=scratch[4:])
+    assert torch.equal(got, want)
 
 
 def test_wkv_chunk_kernel_extreme_decays_stay_finite(cuda_device):

@@ -19,6 +19,14 @@ Tolerances, each as ``max|Δ| / (max|reference| + 1)``:
   measured ≤ 4e-5;
 * sequential vs sequential, one-token decode: 2e-6 (one order of float32
   sums per step; measured ≤ 5e-7).
+
+``kernels.ref.wkv_chunk_passes_ref``, the CUDA kernel's passes mirrored in
+plain torch (chunks of 64 with a zero-padded tail), is held to
+``wkv_sequential`` by the reference's bound, 5e-4 (measured ≤ 9e-6), and to
+``wkv_chunked`` by the float32 spacing of ``Q · decay_max``, Q the longest
+chunk either side sums its log-decays over: 64, or S for JAX's ``Q = S``
+fallback when S is not a multiple of 64 (measured ≤ 1.2e-4 at S = 200,
+decay 25, against a bound of 4.9e-4; ≤ 6e-6 at decay 2).
 """
 import jax
 import jax.numpy as jnp
@@ -135,6 +143,74 @@ def test_sequential_and_decode_match_jax(S):
     assert _rel(po, jo) < SEQ_BOUND and _rel(ps, js) < SEQ_BOUND
 
 
+# the kernel's passes, mirrored on the CPU: S across chunk edges and
+# tails, both head widths, B and the initial state, small and large decays
+@pytest.mark.parametrize("S", [1, 17, 64, 65, 130, 200])
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("decay_max", [2.0, 25.0])
+@pytest.mark.parametrize("B,zero_state", [(1, True), (3, False)])
+def test_passes_mirror_matches_jax_chunked_and_sequential(S, K, decay_max, B,
+                                                          zero_state):
+    a = _inputs(B, S, 2, K, decay_max, 7 * S + K + int(decay_max),
+                state_scale=0.0 if zero_state else 0.2)
+    m = ref.wkv_chunk_passes_ref(*_torch(a))
+    assert m["out"].shape == (B, S, 2, K)
+    nc = -(-S // 64)
+    assert m["dS"].shape == m["s_in"].shape == (B, 2, nc, K, K)
+    so, ss = jrw.wkv_sequential(*_jax(a))
+    assert _rel(m["out"], so) < KERNEL_BOUND
+    assert _rel(m["final_state"], ss) < KERNEL_BOUND
+    jo, js = jrw.wkv_chunked(*_jax(a))
+    Q = S if S % 64 else 64  # JAX's chunk: the whole sequence when S % 64
+    tol = float(np.spacing(np.float32(max(Q, 64) * decay_max)))
+    assert _rel(m["out"], jo) < tol and _rel(m["final_state"], js) < tol
+    for t in m.values():
+        assert bool(torch.isfinite(t).all())
+
+
+@pytest.mark.parametrize("S", [65, 130, 200])
+@pytest.mark.parametrize("K", [16, 64])
+def test_passes_mirror_scratch_matches_jax_sequential(S, K):
+    """Each pass's product on its own: chunk c's state increment is the
+    state ``wkv_sequential`` reaches over that chunk from zero, its decay
+    the exponential of the chunk's log-decay sum, and the state handed to
+    chunk c the sequential state after its first 64 c positions."""
+    r, k, v, logw, u, state = _inputs(3, S, 2, K, 3.0, S + K)
+    m = ref.wkv_chunk_passes_ref(*_torch((r, k, v, logw, u, state)))
+    zero = np.zeros_like(state)
+    for c in range(-(-S // 64)):
+        sl = slice(64 * c, min(64 * c + 64, S))
+        _, inc = jrw.wkv_sequential(*_jax((r[:, sl], k[:, sl], v[:, sl],
+                                           logw[:, sl], u, zero)))
+        assert _rel(m["dS"][:, :, c], inc) < KERNEL_BOUND
+        want = np.exp(logw[:, sl].astype(np.float64).sum(1))  # (B, H, K)
+        assert _rel(m["decay"][:, :, c], want) < SEQ_BOUND
+        _, before = jrw.wkv_sequential(*_jax((r[:, :64 * c], k[:, :64 * c],
+                                              v[:, :64 * c],
+                                              logw[:, :64 * c], u, state))) \
+            if c else (None, state)
+        assert _rel(m["s_in"][:, :, c], before) < KERNEL_BOUND
+
+
+@pytest.mark.parametrize("shape", [(1, 200, 2, 64), (3, 1, 2, 16)])
+def test_scratch_views_have_the_mirror_layout(shape):
+    """The kernel's scratch, read through ``ops.wkv_scratch_views``, holds
+    the mirror's ``dS``, ``s_in`` and ``decay`` at their shapes; the
+    wrapper allocates ``ops.wkv_scratch_floats`` of it per call."""
+    B, S, H, K = shape
+    n = ops.wkv_scratch_floats(*shape)
+    nc = -(-S // ops.WKV_CHUNK)
+    assert n == B * H * nc * K * (2 * K + 1)
+    views = ops.wkv_scratch_views(torch.arange(n, dtype=torch.float32),
+                                  *shape)
+    m = ref.wkv_chunk_passes_ref(*_torch(_inputs(*shape, 2.0, 3)))
+    for name, t in views.items():
+        assert t.shape == m[name].shape, name
+    # the three views tile the scratch in order, with no gap or overlap
+    flat = torch.cat([views[k].reshape(-1) for k in ("dS", "s_in", "decay")])
+    assert torch.equal(flat, torch.arange(n, dtype=torch.float32))
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     a = _torch(_inputs(1, 8, 2, 16, 2.0, 1))
     with pytest.raises(TypeError):
@@ -151,6 +227,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     # ``ref`` takes what the plain version takes (any K)
     out, _ = ops.wkv_chunk(*_torch(_inputs(1, 8, 2, 12, 2.0, 1)), impl="ref")
     assert out.shape == (1, 8, 2, 12)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3])  # r, k, v, logw
+def test_wrapper_rejects_views_off_a_16_byte_boundary(which):
+    """The kernel reads r, k, v and logw in 16-byte pieces: a contiguous
+    view one float into its storage is refused before any launch, on
+    every device, and ``ref`` still takes it."""
+    a = _torch(_inputs(1, 8, 2, 16, 2.0, 1))
+    buf = torch.cat([torch.zeros(1), a[which].reshape(-1)])
+    a[which] = buf[1:].view(a[which].shape)
+    assert a[which].is_contiguous() and a[which].data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ops.wkv_chunk(*a)
+    out, _ = ops.wkv_chunk(*a, impl="ref")
+    assert out.shape == (1, 8, 2, 16)
 
 
 # --------------------------------------------------------------------------
