@@ -46,10 +46,21 @@ raises (exit code ≠ 0) on any failed check:
    for a tissue tile and for a stored round trip: q50 JPEG of this slide's
    2–32× downsampled levels measures 26.7–34.0 dB); per-stage wall times
    and MPix/s;
-7. ``entropy_decode`` vs its plain version and the numpy engine on level
-   0's frames (coefficient-exact), the same error string as the numpy
-   engine on a batch with corrupt frames, and the longest tile's symbol
-   count (the kernel's chain of dependent reads) beside its bytes bound;
+7. ``entropy_decode`` on level 0's frames and on a batch with corrupt
+   frames: its coefficients, stops and error kinds equal to its plain
+   version's (the lockstep) and its plain mirror's
+   (``ref.entropy_decode_subseq_ref``, run on the card), its sync rounds
+   per tile (the kernel's debug output) equal to the mirror's, its
+   coefficients equal to the numpy engine's on level 0 and its error
+   string equal to the numpy engine's on the corrupt batch; ``ms`` is one
+   call at level 0 beside its bytes bound (``plain_ms`` one plain call),
+   ``level_ms`` one call at each level of the study (CUDA events, median
+   of 10) and ``decode_scans_s`` the read side's entropy stage at each
+   level (host clock, median of 3), with the rounds
+   (``rounds_max``, ``rounds_mean``), how many times each symbol was
+   decoded over the kernel's passes (``decodes_per_symbol``), the share of
+   lookups that fell through to the 16-bit table (``slow_lookup_share``)
+   and the longest tile's symbol count;
 8. ``wkv_chunk`` (RWKV6's chunked wkv) vs its plain version at the serving
    path's prefill shape (1, 2048, 40, 64) and a tail shape (1, 200, 40,
    64), from a random state, decays drawn as tests/test_kernels.py draws
@@ -693,44 +704,129 @@ def run_read_side(size: int, slide: bytes, tar: bytes) -> dict:
                 export_mpix_per_s=mpix / (decode_s + tiff_s))
 
 
-def check_entropy_decode(tar: bytes) -> dict:
-    """Phase 7: entropy_decode on level 0's frames vs its plain version and
-    the numpy engine, errors included."""
+def entropy_levels(tar: bytes) -> dict:
+    """``entropy_decode`` at every level of a study: one call through the
+    wrapper (``level_ms``: CUDA events, median of 10) and the read side's
+    entropy stage, ``decode_scans`` (``decode_scans_s``: packing, the copy
+    to the card, the kernel and its read-backs; host clock, median of 3).
+    It uses whichever ``repro_torch`` is first on ``sys.path``, so it times
+    another commit's tree too (PERF.md's A/B)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.wsi import jpeg as P, study_levels
     from repro_torch.wsi.dicom import Part10Index
+    from repro_torch.wsi.entropy import _device_lut, decode_scans, pack_scans
+
+    dev = torch.device("cuda")
+    levels = study_levels(tar)
+    out = dict(level_ms=[], decode_scans_s=[], level_tiles=[])
+    for li in range(json.loads(levels["study.json"])["levels"]):
+        idx = Part10Index(levels[f"level_{li}.dcm"])
+        scans, H, W = P._scans([idx.read_frame(i)
+                                for i in range(idx.n_frames)])
+        args = (*(torch.from_numpy(a).to(dev) for a in pack_scans(scans)),
+                _device_lut(dev), H, W)
+        out["level_ms"].append(_time_ms(lambda: ops.entropy_decode(*args)))
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_scans(scans, H, W, dev)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out["decode_scans_s"].append(statistics.median(walls))
+        out["level_tiles"].append(len(scans))
+        del args
+        torch.cuda.empty_cache()
+    out["level_ms_sum"] = sum(out["level_ms"])
+    out["decode_scans_s_sum"] = sum(out["decode_scans_s"])
+    return out
+
+
+def entropy_plain(args) -> tuple:
+    """One call of ``entropy_decode``'s plain version (the lockstep) on
+    ``args``: its outputs and its time in ms (CUDA events). It uses
+    whichever ``repro_torch`` is first on ``sys.path`` (PERF.md's A/B)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ends[0].record()
+    out = ops.entropy_decode(*args, impl="ref")
+    ends[1].record()
+    ends[1].synchronize()
+    return out, ends[0].elapsed_time(ends[1])
+
+
+def check_entropy_decode(tar: bytes) -> dict:
+    """Phase 7: entropy_decode on level 0's frames vs its plain version, its
+    plain mirror (the kernel's sync rounds included) and the numpy engine,
+    errors included; the kernel's time at every level of the study."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.wsi import jpeg as P, study_levels
+    from repro_torch.wsi.dicom import Part10Index
     from repro_torch.wsi.entropy import _device_lut, pack_scans
 
-    idx = Part10Index(study_levels(tar)["level_0.dcm"])
-    frames = [idx.read_frame(i) for i in range(idx.n_frames)]
-    scans, H, W = P._scans(frames)
     dev = torch.device("cuda")
-    buf, offs, nbits = (torch.from_numpy(a).to(dev) for a in pack_scans(scans))
-    args = (buf, offs, nbits, _device_lut(dev), H, W)
-    got = ops.entropy_decode(*args)
-    t0 = time.perf_counter()
-    plain = ops.entropy_decode(*args, impl="ref")
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    for name, a, b in zip(("coef", "stop", "kind"), got, plain):
-        if not torch.equal(a, b):
-            raise AssertionError(f"entropy_decode: {name} differs from the "
-                                 "plain version")
-    if int(got[2].max()):
+    levels = study_levels(tar)
+
+    def frames_of(li):
+        idx = Part10Index(levels[f"level_{li}.dcm"])
+        return [idx.read_frame(i) for i in range(idx.n_frames)]
+
+    def args_of(frames):
+        scans, H, W = P._scans(frames)
+        return (*(torch.from_numpy(a).to(dev) for a in pack_scans(scans)),
+                _device_lut(dev), H, W)
+
+    def held_to_plain_and_mirror(args, what):
+        """The kernel's three outputs equal the plain version's and the
+        mirror's; its rounds (debug output) equal the mirror's."""
+        stats = torch.empty((args[1].numel(), 3), dtype=torch.int32,
+                            device=dev)
+        got = ops.entropy_decode(*args, stats=stats)
+        *mirror, rounds = ref.entropy_decode_subseq_ref(
+            *args, ops.ENTROPY_THREADS)
+        plain, plain_ms = entropy_plain(args)
+        for name, a, b, c in zip(("coef", "stop", "kind"), got, plain,
+                                 mirror):
+            if not torch.equal(a, b):
+                raise AssertionError(f"entropy_decode: {name} differs from "
+                                     f"the plain version on {what}")
+            if not torch.equal(a, c):
+                raise AssertionError(f"entropy_decode: {name} differs from "
+                                     f"the plain mirror on {what}")
+        if not torch.equal(stats[:, 0], rounds):
+            raise AssertionError(f"entropy_decode: sync rounds differ from "
+                                 f"the plain mirror's on {what}")
+        del mirror, plain
+        return got, stats, plain_ms
+
+    frames = frames_of(0)
+    args = args_of(frames)
+    H, W = args[4:]
+    (coef, stop, kind), stats, plain_ms = held_to_plain_and_mirror(
+        args, "level 0")
+    if int(kind.max()):
         raise AssertionError("entropy_decode: a clean frame failed")
     t0 = time.perf_counter()
     oracle = P.decode_coef_batch(frames, device="cpu", engine="numpy")
     numpy_s = time.perf_counter() - t0
-    if not torch.equal(got[0].cpu(), oracle):
+    if not torch.equal(coef.cpu(), oracle):
         raise AssertionError("entropy_decode: coefficients differ from the "
                              "numpy engine")
+    del oracle
     # corrupt frames: a truncated one and a bit-flipped one among good ones
     _, _, start, _ = P._parse_jfif(frames[2])
     flipped = bytearray(frames[2])
     flipped[start + 40] ^= 0x10
     batch = [frames[0], frames[1][: len(frames[1]) // 2] + b"\xff\xd9",
              bytes(flipped), frames[3]]
+    (_, _, bad_kind), _, _ = held_to_plain_and_mirror(args_of(batch),
+                                                      "the corrupt batch")
+    if not int(bad_kind.max()):
+        raise AssertionError("entropy_decode: the corrupt batch decoded")
     errs = []
     for device, engine in (("cuda", "kernel"), ("cpu", "numpy")):
         try:
@@ -740,26 +836,34 @@ def check_entropy_decode(tar: bytes) -> dict:
             errs.append(str(exc))
     if errs[0] is None or errs[0] != errs[1]:
         raise AssertionError(f"entropy_decode errors differ: {errs}")
-    symbols = got[1].long() + 1
-    coef = got[0]
-    nbytes = (coef.numel() * 4 + buf.numel() + len(scans) * (8 + 4 + 4 + 4)
+    symbols = stop.long() + 1
+    rounds = stats[:, 0].double()
+    decoded, slow = (int(x) for x in stats[:, 1:].sum(0).tolist())
+    buf = args[0]
+    nbytes = (coef.numel() * 4 + buf.numel() + len(frames) * (8 + 4 + 4 + 4)
               + args[3].numel() * 2)
     bound_ms, bound_by = _bound(nbytes, 0.0)
+    del coef, stop, kind, stats
+    torch.cuda.empty_cache()
     ms = _time_ms(lambda: ops.entropy_decode(*args))
     longest = int(symbols.max())
+    del args
+    torch.cuda.empty_cache()
     return dict(
         name="entropy_decode", route="cuda",
         source="src/repro_torch/kernels/csrc/entropy_decode.cu",
         replaces="src/repro/wsi/entropy_jax.py:55",
-        mismatches=0, max_abs_err=0.0, ms=ms,
-        plain_ms=_time_ms(lambda: ops.entropy_decode(*args, impl="ref"),
-                          reps=2, warmup=0),
+        mismatches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-        shape=[len(scans), 3, H, W], scan_bytes=int(buf.numel()),
+        shape=[len(frames), 3, H, W],
+        scan_bytes=int(buf.numel()), threads_per_tile=ops.ENTROPY_THREADS,
+        **entropy_levels(tar),
+        rounds_max=int(rounds.max()), rounds_mean=float(rounds.mean()),
+        decodes_per_symbol=decoded / int(symbols.sum()),
+        slow_lookup_share=slow / decoded,
         longest_tile_symbols=longest, total_symbols=int(symbols.sum()),
         ns_per_symbol_longest_tile=ms * 1e6 / longest,
-        numpy_engine_s=numpy_s, plain_first_call_s=plain_s,
-        corrupt_batch_error=errs[0])
+        numpy_engine_s=numpy_s, corrupt_batch_error=errs[0])
 
 
 def _rel(got, want) -> float:

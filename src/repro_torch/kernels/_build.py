@@ -48,8 +48,8 @@ _ENTRIES = {
     "dct8x8_quant": ("dct8x8_quant_launch",
                      [_P, _P, _I64, _I64, _P, _P, _P]),
     "entropy_decode": ("entropy_decode_launch",
-                       [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P,
-                        _P]),
+                       [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                        _I64, _P, _P]),
     "wkv_chunk": ("wkv_chunk_launch",
                   [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                    _I64, _P]),

@@ -30,8 +30,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
 __all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
-           "dct8x8_quant", "entropy_decode", "wkv_chunk",
-           "wkv_scratch_floats", "wkv_scratch_views"]
+           "dct8x8_quant", "entropy_decode", "ENTROPY_THREADS",
+           "wkv_chunk", "wkv_scratch_floats", "wkv_scratch_views"]
 
 
 def _launches_kernel(x: torch.Tensor, name: str, ndim: int, impl: str,
@@ -247,19 +247,33 @@ def dct8x8_quant(plane: torch.Tensor, qtable=None,
 dct8x8_quant.launches = 0
 
 
+#: threads (subsequences) of the ``entropy_decode`` kernel's CTA, one CTA
+#: per tile; :func:`ref.entropy_decode_subseq_ref` at this width gives the
+#: kernel's sync rounds
+ENTROPY_THREADS = 256
+
+
 def entropy_decode(buf: torch.Tensor, offs: torch.Tensor,
                    nbits: torch.Tensor, lut: torch.Tensor, H: int, W: int,
-                   impl: str = "auto"):
+                   impl: str = "auto", stats: torch.Tensor | None = None):
     """Huffman-decode N tile scans → ``(coef, stop, err_kind)``.
 
     buf (B,) uint8, offs (N,) int64, nbits (N,) int32 and lut (4·65536,)
     int16, all on one device, as :func:`ref.entropy_decode_ref` documents
-    (each scan followed by at least 8 zero bytes). One launch decodes every
-    tile of a level, one thread per tile, into (N, 3, H, W) int32
-    coefficients (blocks in place, DC integrated); each lane reports the
-    index of the symbol at which it stopped (its last, or its first
-    failing one) and the failure's kind (0 when it decoded cleanly). The
-    caller turns those into the reference's error.
+    (each scan followed by at least 8 zero bytes inside buf). One launch
+    decodes every tile of a level, one CTA of :data:`ENTROPY_THREADS`
+    threads per tile (self-synchronising subsequences, then a dense write;
+    :func:`ref.entropy_decode_subseq_ref` mirrors it), into (N, 3, H, W)
+    int32 coefficients (blocks in place, DC integrated), every one written
+    once by the kernel; each lane reports the index of the symbol at which
+    it stopped (its last, or its first failing one) and the failure's kind
+    (0 when it decoded cleanly). The caller turns those into the
+    reference's error.
+
+    ``stats``, a debug output for tests and measurements: a contiguous
+    (N, 3) int32 CUDA tensor that the kernel fills with each tile's sync
+    rounds, symbols decoded over all its passes and lookups that fell
+    through to the 16-bit table. Only a kernel launch takes it.
     """
     if H <= 0 or W <= 0 or H % 8 or W % 8:
         raise ValueError(f"entropy_decode: tile {H}x{W} is not a positive "
@@ -283,22 +297,33 @@ def entropy_decode(buf: torch.Tensor, offs: torch.Tensor,
         if lo_off < 0 or lo_bits < 0 or hi_end > buf.numel():
             raise ValueError("entropy_decode: a scan and its 8 guard bytes "
                              "do not fit inside buf")
-    if not _launches_kernel(buf, "entropy_decode", 1, impl, torch.uint8):
-        return ref.entropy_decode_ref(buf, offs, nbits, lut, H, W)
+    launch = _launches_kernel(buf, "entropy_decode", 1, impl, torch.uint8)
     N = offs.numel()
+    if stats is not None and (
+            not launch or stats.dtype != torch.int32
+            or tuple(stats.shape) != (N, 3) or not stats.is_contiguous()
+            or stats.device != buf.device):
+        raise ValueError(f"entropy_decode: stats must be a contiguous "
+                         f"({N}, 3) int32 tensor on the card, and is only "
+                         f"filled by a kernel launch")
+    if not launch:
+        return ref.entropy_decode_ref(buf, offs, nbits, lut, H, W)
     dev = buf.device
-    coef = torch.zeros((N, 3, H, W), dtype=torch.int32, device=dev)
+    coef = torch.empty((N, 3, H, W), dtype=torch.int32, device=dev)
     stop = torch.empty(N, dtype=torch.int32, device=dev)
     err_kind = torch.empty(N, dtype=torch.int32, device=dev)
     if N == 0:
         return coef, stop, err_kind
     offs, nbits, lut = (t.contiguous() for t in (offs, nbits, lut))
+    if stats is not None:
+        stats.zero_()
     zz = _host_zigzag()
     with torch.cuda.device(dev):
         err = library("entropy_decode")(
-            buf.data_ptr(), offs.data_ptr(), nbits.data_ptr(),
+            buf.data_ptr(), buf.numel(), offs.data_ptr(), nbits.data_ptr(),
             lut.data_ptr(), coef.data_ptr(), stop.data_ptr(),
-            err_kind.data_ptr(), N, H, W, zz.ctypes.data, _stream())
+            err_kind.data_ptr(), 0 if stats is None else stats.data_ptr(),
+            N, H, W, zz.ctypes.data, _stream())
     _raise_on_error(err, "entropy_decode")
     entropy_decode.launches += 1
     return coef, stop, err_kind

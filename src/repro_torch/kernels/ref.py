@@ -51,6 +51,8 @@ chunk indexing, tail and state hand-off are checked on the CPU.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -60,8 +62,8 @@ __all__ = [
     "rgb2ycbcr_ref", "dct8x8_quant_ref", "jpeg_quotient_ref",
     "jpeg_transform_ref", "idct_dequant_blocks", "jpeg_inverse_ref",
     "downsample2x2_ref", "downsample2x2_q_ref", "entropy_decode_ref",
-    "ERR_INVALID", "ERR_RUN", "ERR_TRUNC", "wkv_chunked_ref",
-    "wkv_chunk_passes_ref",
+    "entropy_decode_subseq_ref", "ERR_INVALID", "ERR_RUN", "ERR_TRUNC",
+    "wkv_chunked_ref", "wkv_chunk_passes_ref",
 ]
 
 # ITU-T81 Annex K quantization tables (quality 50)
@@ -281,6 +283,51 @@ def downsample2x2_q_ref(img) -> torch.Tensor:
 ERR_INVALID, ERR_RUN, ERR_TRUNC = 1, 2, 3
 
 
+class _Symbol(NamedTuple):
+    """One Huffman symbol per lane, decoded at the lane's state."""
+    v: torch.Tensor         # its value: the DC difference or the AC value
+    pos: torch.Tensor       # the bit after it
+    k: torch.Tensor         # the next zigzag slot (0: the unit is done)
+    slot: torch.Tensor      # the zigzag slot it writes (a DC symbol: 0)
+    is_dc: torch.Tensor
+    is_coef: torch.Tensor   # an AC value (not EOB, not ZRL)
+    adv: torch.Tensor       # it completes its unit
+    bad_code: torch.Tensor  # no code starts with these bits
+    bad_run: torch.Tensor   # an AC run past the block's end
+
+
+def _decode_symbol(buf, base, lut, pos, comp, k, live) -> _Symbol:
+    """The symbol at bit ``pos`` of each lane's scan (byte offset ``base``
+    in ``buf``), decoded with the table of the lane's component ``comp``
+    and zigzag slot ``k`` (0: a DC symbol is next). int32 throughout, with
+    3-byte windows; lanes that are not ``live`` read their scan's first
+    bytes and are to be masked off by the caller."""
+    def window(p):  # 24 bits from the byte of each live cursor p
+        i = base + (torch.where(live, p, 0) >> 3)
+        return (buf[i] << 16) | (buf[i + 1] << 8) | buf[i + 2]
+
+    is_dc = k == 0
+    code = (window(pos) >> (8 - (pos & 7))) & 0xFFFF
+    e = lut[(torch.where(is_dc, 0, 2) + (comp != 0)) * 65536 + code]
+    sym, ln = e & 0xFF, e >> 8
+    s = torch.where(is_dc, sym, sym & 0xF)
+    pos2 = pos + ln
+    ext = (1 << s) - 1
+    bits = (window(pos2) >> (24 - (pos2 & 7) - s)) & ext
+    v = torch.where(bits >= (1 << s) >> 1, bits, bits - ext)
+    is_eob = ~is_dc & (sym == 0x00)
+    is_zrl = ~is_dc & (sym == 0xF0)
+    is_coef = ~(is_dc | is_eob | is_zrl)
+    knew = k + (sym >> 4)
+    bad_code = ln == 0
+    k2 = torch.where(is_dc, 1, torch.where(
+        is_zrl, k + 16, torch.where(is_coef, knew + 1, k)))
+    adv = is_eob | (k2 >= 64)
+    return _Symbol(v, pos2 + s, torch.where(adv, 0, k2),
+                   torch.where(is_dc, 0, knew.clamp(0, 63)), is_dc, is_coef,
+                   adv, bad_code, ~bad_code & is_coef & (knew > 63))
+
+
 def entropy_decode_ref(buf, offs, nbits, lut, H: int, W: int):
     """Plain version of the Huffman decode kernel (baseline, 4:4:4).
 
@@ -293,13 +340,13 @@ def entropy_decode_ref(buf, offs, nbits, lut, H: int, W: int):
     coefficients, blocks in place, DC integrated per component; for each
     lane the index of the symbol at which it stopped — its last symbol, or
     the one at which it first failed; and the kind of that failure
-    (``ERR_*``, 0 for none).
+    (``ERR_*``, 0 for none). Coefficients from a failure on are zero.
 
     The lockstep of ``repro.wsi.entropy_jax._lockstep``, in int32 with 3-byte
     windows: step s decodes the s-th symbol of every live lane. A lane
     stops at its first failure and the others run on, so each lane's
-    result is what it is alone — what the CUDA kernel computes with one
-    thread per lane.
+    result is what it is alone — what the CUDA kernel computes, one CTA
+    per lane (:func:`entropy_decode_subseq_ref` mirrors how).
     """
     dev = buf.device
     N = offs.numel()
@@ -323,51 +370,31 @@ def entropy_decode_ref(buf, offs, nbits, lut, H: int, W: int):
     pred = torch.zeros((N, 3), dtype=torch.int32, device=dev)
     live = torch.ones(N, dtype=torch.bool, device=dev)
 
-    def window(p, live):  # 24 bits from the byte of each live cursor p
-        i = offs + (torch.where(live, p, 0) >> 3)
-        return (buf[i] << 16) | (buf[i + 1] << 8) | buf[i + 2]
-
     step = 0
     while True:
-        is_dc = k == 0
         comp = u % 3
-        code = (window(pos, live) >> (8 - (pos & 7))) & 0xFFFF
-        e = lut[(torch.where(is_dc, 0, 2) + (comp != 0)) * 65536 + code]
-        sym, ln = e & 0xFF, e >> 8
-        s = torch.where(is_dc, sym, sym & 0xF)
-        pos2 = pos + ln
-        ext = (1 << s) - 1
-        bits = (window(pos2, live) >> (24 - (pos2 & 7) - s)) & ext
-        v = torch.where(bits >= (1 << s) >> 1, bits, bits - ext)
-
-        is_eob = ~is_dc & (sym == 0x00)
-        is_zrl = ~is_dc & (sym == 0xF0)
-        is_coef = ~(is_dc | is_eob | is_zrl)
-        knew = k + (sym >> 4)
-        bad_code = live & (ln == 0)
-        bad_run = live & ~bad_code & is_coef & (knew > 63)
+        d = _decode_symbol(buf, offs, lut, pos, comp, k, live)
+        bad_code = live & d.bad_code
+        bad_run = live & d.bad_run
         err_kind = torch.where(bad_code, ERR_INVALID,
                                torch.where(bad_run, ERR_RUN, err_kind))
         ok = live & ~(bad_code | bad_run)
-        pos = torch.where(ok, pos2 + s, pos)
+        pos = torch.where(ok, d.pos, pos)
 
         # the DC predictor of the lane's component, then one scatter
         old = pred.gather(1, comp[:, None].long())[:, 0]
-        dc = torch.where(ok & is_dc, old + v, old)
+        dc = torch.where(ok & d.is_dc, old + d.v, old)
         pred.scatter_(1, comp[:, None].long(), dc[:, None])
-        slot = nat[torch.where(is_dc, 0, knew.clamp(0, 63))]
+        slot = nat[d.slot]
         blk = u // 3
         addr = (base + comp.long() * plane
                 + ((blk // (W // 8)) * 8 + slot // 8) * W
                 + (blk % (W // 8)) * 8 + slot % 8)
-        write = ok & (is_dc | is_coef)
-        flat[torch.where(write, addr, dump)] = torch.where(is_dc, dc, v)
+        write = ok & (d.is_dc | d.is_coef)
+        flat[torch.where(write, addr, dump)] = torch.where(d.is_dc, dc, d.v)
 
-        k = torch.where(ok, torch.where(is_dc, 1, torch.where(
-            is_zrl, k + 16, torch.where(is_coef, knew + 1, k))), k)
-        adv = ok & (is_eob | (k >= 64))
-        u = u + adv.to(torch.int32)
-        k = torch.where(adv, 0, k)
+        k = torch.where(ok, d.k, k)
+        u = u + (ok & d.adv).to(torch.int32)
         trunc = ok & (u < nu) & (pos > nbits)
         err_kind = torch.where(trunc, ERR_TRUNC, err_kind)
         stop = torch.where(live & ~(ok & (u < nu) & ~trunc), step, stop)
@@ -375,6 +402,210 @@ def entropy_decode_ref(buf, offs, nbits, lut, H: int, W: int):
         step += 1
         if step % 16 == 0 and not bool(live.any()):
             return coef, stop, err_kind
+
+
+#: what the mirror leaves in a coefficient that no lane wrote (every one is
+#: written, so the value never survives; a test would see it if one did)
+_UNWRITTEN = -2 ** 31
+
+
+def entropy_decode_subseq_ref(buf, offs, nbits, lut, H: int, W: int,
+                              threads: int):
+    """Plain mirror of the ``entropy_decode`` kernel's design: one CTA of
+    ``threads`` threads per tile, self-synchronising subsequences.
+
+    Same arguments and results as :func:`entropy_decode_ref`, plus
+    ``rounds`` (N,) int32, the sync rounds each tile took. Vectorised over
+    (tile, subsequence) lanes, lane j standing for thread j:
+
+    1. a tile's ``nbits`` bits are cut into ranges of L bits, L the least
+       multiple of 32 (≥ 32) with ``threads`` · L ≥ nbits; J = ⌈nbits/L⌉
+       (≥ 1) ranges are used, the last one ending past ``nbits`` (its
+       decoder stops at the first symbol that ends beyond the scan). A
+       decoder's state at a symbol boundary is (bit, comp, k); entry j is
+       guessed (j·L, 0, 0), entry 0 is true;
+    2. sync rounds: every lane whose entry changed decodes from it to the
+       first boundary at or past its range's end and hands that state to
+       the next lane as its entry; an invalid code or a run past the block
+       hands nothing on. Rounds repeat until no entry changes; after round
+       r entries 0..r+1 are true, so a tile takes at most J rounds;
+    3. each lane's last decode counted its symbols, completed units, DC
+       symbols, DC differences per component (int32, wrapping as the
+       reference's predictor does) and its first failure (local symbol
+       index, units and slot at it, kind; a truncation is the first symbol
+       ending past ``nbits``). An exclusive scan over the lanes gives each
+       range's first global symbol, first unit and DC predictors; the first
+       range in which the tile ends (a failure below unit ``nu``, or its
+       ``nu``-th unit) fixes ``stop``, ``err_kind``, the units started
+       ``u_z`` and the last symbol that is applied;
+    4. dense write: a lane owns the units whose DC symbol lies in its range
+       (ranges up to the ending one). It skips the symbols that finish the
+       previous owner's unit, builds each owned unit in a 64-entry buffer —
+       the last one past its range's end, a failing one as far as the
+       reference wrote it — and writes the whole 8×8 block once; units from
+       ``u_z`` on are written as zero blocks.
+
+    Nothing on the main path calls it: the tests hold it to
+    :func:`entropy_decode_ref` on the CPU and ``chip_smoke.py`` holds the
+    kernel's rounds to it.
+    """
+    dev = buf.device
+    N, T = offs.numel(), threads
+    bw = W // 8
+    nu = (H // 8) * bw * 3
+    coef = torch.full((N, 3, H, W), _UNWRITTEN, dtype=torch.int32,
+                      device=dev)
+    stop = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    err_kind = torch.zeros(N, dtype=torch.int32, device=dev)
+    rounds = torch.zeros(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return coef, stop, err_kind, rounds
+
+    lut = lut.to(torch.int32)
+    buf = buf.to(torch.int32)
+    nat = torch.from_numpy(ZIGZAG).to(dev)
+    nbits = nbits.to(torch.int32)
+    # 1. lanes (tile, subsequence), tile-major
+    tile = torch.arange(N, device=dev).repeat_interleave(T)
+    j = torch.arange(T, dtype=torch.int32, device=dev).repeat(N)
+    L = 32 * torch.clamp((nbits + 32 * T - 1) // (32 * T), min=1)
+    J = torch.clamp((nbits + L - 1) // L, min=1)
+    base, nb, Lm, Jm = offs[tile], nbits[tile], L[tile], J[tile]
+    lane = j < Jm
+    end = torch.where(j == Jm - 1, nb + 1, (j + 1) * Lm)
+    e_pos, e_comp, e_k = j * Lm, torch.zeros_like(j), torch.zeros_like(j)
+    zero = torch.zeros_like(j)
+    nsym, adv, ndc = zero.clone(), zero.clone(), zero.clone()
+    f_i, f_a, f_k, f_kind = zero.clone(), zero.clone(), zero.clone(), \
+        zero.clone()
+    dcs = torch.zeros((N * T, 3), dtype=torch.int32, device=dev)
+    comps = torch.arange(3, device=dev)
+
+    def decode(todo):
+        """Each todo lane from its entry to the first symbol boundary at or
+        past its range's end: that boundary's state and the counts."""
+        pos, comp, k = e_pos, e_comp, e_k
+        for t in (nsym, adv, ndc, f_kind):
+            t.masked_fill_(todo, 0)
+        dcs.masked_fill_(todo[:, None], 0)
+        live = todo & (pos < end)
+        while bool(live.any()):
+            d = _decode_symbol(buf, base, lut, pos, comp, k, live)
+            bad = live & (d.bad_code | d.bad_run)
+            if bool(bad.any()):
+                kind = torch.where(d.bad_code, ERR_INVALID, ERR_RUN)
+                for t, val in ((f_i, nsym), (f_a, adv), (f_k, k),
+                               (f_kind, kind)):
+                    t.copy_(torch.where(bad, val, t))
+            ok = live & ~bad
+            dc = ok & d.is_dc
+            dcs.add_(torch.where(dc[:, None] & (comp[:, None] == comps),
+                                 d.v[:, None], 0).to(torch.int32))
+            ndc.add_(dc.to(torch.int32))
+            nsym.add_(ok.to(torch.int32))
+            a = ok & d.adv
+            adv.add_(a.to(torch.int32))
+            comp = torch.where(a, (comp + 1) % 3, comp)
+            k = torch.where(ok, d.k, k)
+            pos = torch.where(ok, d.pos, pos)
+            trunc = ok & (pos > nb)
+            if bool(trunc.any()):
+                for t, val in ((f_i, nsym - 1), (f_a, adv), (f_k, k),
+                               (f_kind, torch.full_like(j, ERR_TRUNC))):
+                    t.copy_(torch.where(trunc, val, t))
+            live = ok & (pos < end)
+        handed = todo & ((f_kind == 0) | (f_kind == ERR_TRUNC))
+        return pos, comp, k, handed
+
+    # 2. sync rounds
+    todo = lane.clone()
+    while True:
+        rounds += todo.view(N, T).any(1).to(torch.int32)
+        x_pos, x_comp, x_k, handed = decode(todo)
+        x_pos, x_comp, x_k, handed = (torch.roll(t, 1) for t in (
+            x_pos, x_comp, x_k, handed))
+        todo = lane & (j > 0) & handed & (
+            (x_pos != e_pos) | (x_comp != e_comp) | (x_k != e_k))
+        if not bool(todo.any()):
+            break
+        e_pos, e_comp, e_k = (torch.where(todo, x, e) for x, e in (
+            (x_pos, e_pos), (x_comp, e_comp), (x_k, e_k)))
+
+    # 3. the scan over each tile's ranges, and the tile's outcome
+    def exclusive(x):
+        x = torch.where(lane.view(N, T, *([1] * (x.dim() - 1))),
+                        x.view(N, T, *x.shape[1:]).long(), 0)
+        return (torch.cumsum(x, 1) - x).reshape(N * T, *x.shape[2:])
+
+    s0, u0 = exclusive(nsym), exclusive(adv)
+    p0 = exclusive(dcs).to(torch.int32)  # wraps as int32, like pred += v
+    fail_end = lane & (f_kind > 0) & (u0 + f_a < nu)
+    ends = (fail_end | (lane & (u0 + adv >= nu))).view(N, T)
+    assert bool(ends.any(1).all()), "a tile's decode has no end"
+    j_end = ends.to(torch.int8).argmax(1)
+    me = torch.arange(N, device=dev) * T + j_end
+    failed = fail_end[me]
+    fail_stop = s0[me] + f_i[me]
+    err_kind = torch.where(failed, f_kind[me], 0).to(torch.int32)
+    u_z = torch.where(failed, u0[me] + f_a[me] + (f_k[me] != 0).long(), nu)
+    # symbols from this global index on are not applied
+    limit = torch.where(failed, fail_stop + (err_kind == ERR_TRUNC).long(),
+                        torch.iinfo(torch.int64).max)
+
+    # 4. the dense write
+    blocks = coef.view(N, 3, H // 8, 8, bw, 8)
+
+    def put(mask, unit, values):
+        m = mask.nonzero()[:, 0]
+        b = unit[m] // 3
+        blocks[tile[m], unit[m] % 3, b // bw, :, b % bw, :] = \
+            values[m].view(-1, 8, 8)
+
+    first = u0 + (e_k != 0).long()
+    n_own = torch.where(lane & (j <= j_end[tile]), torch.clamp(torch.minimum(
+        ndc.long(), u_z[tile] - first), min=0), 0)
+    pos, comp, k, g = e_pos, e_comp, e_k, s0
+    pred = p0.clone()
+    skip = k != 0  # the symbols that finish the previous owner's unit
+    unit, done = first, torch.zeros_like(first)
+    unit_buf = torch.zeros((N * T, 64), dtype=torch.int32, device=dev)
+    clean_stop = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    live = n_own > 0
+    lim = limit[tile]
+    while bool(live.any()):
+        at_limit = live & (g >= lim)  # a failing unit, as far as it went
+        assert bool((~at_limit | (~skip & (k != 0))).all())
+        put(at_limit, unit, unit_buf)
+        live = live & ~at_limit
+        d = _decode_symbol(buf, base, lut, pos, comp, k, live)
+        assert not bool((live & (d.bad_code | d.bad_run)).any())
+        w = live & ~skip
+        dc = w & d.is_dc
+        pred = torch.where(dc[:, None] & (comp[:, None] == comps),
+                           pred + d.v[:, None], pred)
+        val = torch.where(d.is_dc, pred.gather(1, comp[:, None].long())[:, 0],
+                          d.v)
+        wr = (w & (d.is_dc | d.is_coef)).nonzero()[:, 0]
+        unit_buf[wr, nat[d.slot[wr]].long()] = val[wr]
+        a = live & d.adv
+        full = a & ~skip
+        put(full, unit, unit_buf)
+        unit_buf[full] = 0
+        last = full & (unit == nu - 1)
+        clean_stop[tile[last]] = g[last]
+        unit = unit + full.long()
+        done = done + full.long()
+        skip = skip & ~a
+        comp = torch.where(a, (comp + 1) % 3, comp)
+        k = torch.where(live, d.k, k)
+        pos = torch.where(live, d.pos, pos)
+        g = g + live.long()
+        live = live & (done < n_own)
+    units = torch.arange(nu, device=dev)
+    zn, zu = (units[None] >= u_z[:, None]).nonzero(as_tuple=True)
+    blocks[zn, zu % 3, (zu // 3) // bw, :, (zu // 3) % bw, :] = 0
+    stop = torch.where(failed, fail_stop, clean_stop).to(torch.int32)
+    return coef, stop, err_kind, rounds
 
 
 def wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 64, sub: int = 16):

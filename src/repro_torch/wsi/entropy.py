@@ -1,11 +1,14 @@
-"""Whole-level JPEG entropy decode on the device: one thread per tile.
+"""Whole-level JPEG entropy decode on the device: one CTA per tile.
 
 The counterpart of ``repro.wsi.entropy_jax``. The reference compiles the
 numpy lockstep automaton (all tiles of a level advance one symbol per step)
-into one ``lax.while_loop``; here every tile's scan is decoded by one
-thread of the ``entropy_decode`` kernel, start to end, with no lockstep.
-``decode_scans`` packs the unstuffed scans with guard bytes, launches the
-kernel (its plain version on the CPU) and replays the errors.
+into one ``lax.while_loop``; here every tile's scan is decoded by one CTA
+of the ``entropy_decode`` kernel, with no lockstep across tiles: its
+threads split the scan into subsequences, synchronise them by Huffman
+self-synchronisation, and each writes the 8×8 blocks whose DC symbol lies
+in its subsequence. ``decode_scans`` packs the unstuffed scans with guard
+bytes, launches the kernel (its plain version on the CPU) and replays the
+errors.
 
 Contract with the numpy engine (``jpeg._entropy_decode_batch``, the
 differential oracle):
@@ -35,9 +38,10 @@ from repro_torch.kernels.ref import ERR_INVALID, ERR_RUN, ERR_TRUNC
 __all__ = ["decode_scans", "pack_scans"]
 
 #: zero bytes after each scan: one symbol can carry a corrupt tile's cursor
-#: ≤ 27 bits past its end before the truncation check stops it, the numpy
-#: engine's 64-bit window and the kernel's 64-bit refill read ≤ 8 bytes
-#: ahead of a cursor inside the scan
+#: ≤ 27 bits past its end before the truncation check stops it, and the
+#: numpy engine's 64-bit window reads ≤ 8 bytes ahead of a cursor inside
+#: the scan (the kernel's bit buffer loads whole 4-byte words a few bytes
+#: further, never past buf's end, and decodes none of those bits)
 _GUARD = 8
 
 _MESSAGES = {

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_map
 from repro_torch.serve import ContinuousBatchingEngine, Request
@@ -121,10 +121,51 @@ def test_per_tile_kernels_match_plain(cuda_device):
             assert torch.equal(got, ops.dct8x8_quant(plane, q, impl="ref"))
 
 
+def _entropy_args(scans, H, W, device):
+    return (*(torch.from_numpy(a).to(device) for a in pack_scans(scans)),
+            _device_lut(device), H, W)
+
+
+def _assert_kernel_equals_plain(args):
+    n0 = ops.entropy_decode.launches
+    got = ops.entropy_decode(*args)
+    assert ops.entropy_decode.launches == n0 + 1
+    for name, a, b in zip(("coef", "stop", "err_kind"), got,
+                          ops.entropy_decode(*args, impl="ref")):
+        assert torch.equal(a, b), name
+    return got
+
+
+def _corrupt_lanes(scans):
+    """Truncated, bit-flipped, garbage-tailed and hand-made corrupt scans
+    among clean ones."""
+    rng = np.random.default_rng(16)
+    lanes = list(scans)
+    for s in scans[:3]:
+        lanes += [s[:c] for c in (0, 1, 7, s.size // 2, s.size - 1)]
+        for _ in range(4):
+            mut = s.copy()
+            mut[rng.integers(0, mut.size)] ^= \
+                np.uint8(1 << int(rng.integers(8)))
+            lanes.append(mut)
+        lanes.append(np.concatenate([s, rng.integers(0, 256, 64)
+                                     .astype(np.uint8)]))
+    return lanes + [np.zeros(0, np.uint8), np.array([0xFF] * 3, np.uint8),
+                    np.array([0x3F, 0xFF, 0xC0], np.uint8)]
+
+
 def test_entropy_decode_kernel_matches_plain_and_numpy(cuda_device):
     rng = np.random.default_rng(15)
-    for tiles in (_slide_tiles(8, 1024),
-                  rng.integers(0, 256, size=(5, 3, 64, 128))):
+    for tiles, plain in ((_slide_tiles(8, 1024), True),
+                         (rng.integers(0, 256, size=(5, 3, 64, 128)), True),
+                         (_slide_tiles(8, 256), True),  # one tile
+                         (rng.integers(0, 256, size=(7, 3, 8, 8)), True),
+                         (rng.integers(0, 256, size=(6, 3, 16, 16)), True),
+                         # a long scan (~200k symbols): the lockstep takes
+                         # a step of some 40 launches a symbol, so the
+                         # numpy engine alone checks it
+                         (rng.integers(0, 256, size=(1, 3, 256, 256)),
+                          False)):
         jpgs = _jpgs(tiles)
         scans, H, W = P._scans(jpgs)
         n0 = ops.entropy_decode.launches
@@ -132,11 +173,62 @@ def test_entropy_decode_kernel_matches_plain_and_numpy(cuda_device):
         assert ops.entropy_decode.launches == n0 + 1
         expect = P.decode_coef_batch(jpgs, device="cpu", engine="numpy")
         assert torch.equal(got.cpu(), expect)
-        args = (*(torch.from_numpy(a).to(cuda_device)
-                  for a in pack_scans(scans)), _device_lut(cuda_device), H, W)
-        for a, b in zip(ops.entropy_decode(*args),
-                        ops.entropy_decode(*args, impl="ref")):
-            assert torch.equal(a, b)
+        if not plain:
+            continue
+        _assert_kernel_equals_plain(_entropy_args(scans, H, W, cuda_device))
+        # corrupt lanes beside clean ones: every output equal
+        _, _, kind = _assert_kernel_equals_plain(
+            _entropy_args(_corrupt_lanes(scans), H, W, cuda_device))
+        assert kind.max() > 0
+
+
+def test_entropy_decode_kernel_on_an_unaligned_buf_of_odd_length(
+        cuda_device):
+    """buf starts at an odd address, its length is not a multiple of 4 and
+    the last scan's guard ends at its last byte. The kernel loads 32-bit
+    words at 4-aligned addresses only (a misaligned load faults), reads
+    the partial words at buf's edges bytewise, and decodes as the plain
+    version does. A read of a few bytes past buf would not show here: the
+    allocator rounds every buffer up."""
+    scans, H, W = P._scans(_jpgs(_slide_tiles(12, 512)))
+    buf, offs, nbits = pack_scans(scans)
+    pad = next(p for p in (1, 2, 3, 4) if (buf.size + p) % 4)
+    data = torch.from_numpy(np.concatenate([np.zeros(pad, np.uint8), buf]))
+    rest = (torch.from_numpy(offs + pad).to(cuda_device),
+            torch.from_numpy(nbits).to(cuda_device),
+            _device_lut(cuda_device), H, W)
+    plain = ops.entropy_decode(data.to(cuda_device), *rest, impl="ref")
+    for lead in (1, 2, 3):
+        room = torch.zeros(lead + data.numel(), dtype=torch.uint8,
+                           device=cuda_device)
+        room[lead:] = data.to(cuda_device)
+        view = room[lead:]
+        assert view.numel() % 4 and view.data_ptr() % 4
+        for name, a, b in zip(("coef", "stop", "err_kind"),
+                              ops.entropy_decode(view, *rest), plain):
+            assert torch.equal(a, b), name
+
+
+def test_entropy_decode_kernel_rounds_match_the_mirror(cuda_device):
+    """The kernel's sync rounds per tile (its debug output) are the plain
+    mirror's at the kernel's width, on clean and corrupt lanes."""
+    rng = np.random.default_rng(17)
+    for tiles in (_slide_tiles(13, 512),
+                  rng.integers(0, 256, size=(2, 3, 64, 64)),
+                  rng.integers(0, 256, size=(3, 3, 16, 16))):
+        scans, H, W = P._scans(_jpgs(tiles))
+        for lanes in (scans, _corrupt_lanes(scans)):
+            args = _entropy_args(lanes, H, W, cuda_device)
+            stats = torch.empty((len(lanes), 3), dtype=torch.int32,
+                                device=cuda_device)
+            got = ops.entropy_decode(*args, stats=stats)
+            cpu = _entropy_args(lanes, H, W, torch.device("cpu"))
+            *mirror, rounds = ref.entropy_decode_subseq_ref(
+                *cpu, ops.ENTROPY_THREADS)
+            for a, b in zip(got, mirror):
+                assert torch.equal(a.cpu(), b)
+            assert torch.equal(stats[:, 0].cpu(), rounds)
+            assert bool((stats[:, 1] >= stats[:, 2]).all())
 
 
 def test_entropy_decode_kernel_raises_like_numpy_engine(cuda_device):
