@@ -15,7 +15,11 @@ raises (exit code ≠ 0) on any failed check:
    (3, size, size) level (bit-exact), ``jpeg_transform`` on the (N, 3, 256,
    256) tile batch of that level: slide tiles (exact) and uniform noise
    (every mismatch ±1 at a rounding tie, at most 1e-6 of the coefficients);
-   ``jpeg_inverse`` on the coefficients of both (bit-exact);
+   ``jpeg_inverse`` on the coefficients of both (bit-exact); both also at
+   the tile count of every level of the study (``level_ms``: the first
+   4096, 1024, …, 1 slide tiles, one call each, with ``level_bound_ms``
+   and the sums; ``copy_ms``, a PyTorch copy of level 0's bytes:
+   ``block_levels``);
    ``rgb2ycbcr`` and ``dct8x8_quant`` at the per-tile shapes (3, 256, 256)
    and (256, 256) (bit-exact), also timed at a level's shape; each timed
    with CUDA events (median of 10; at the per-tile shapes per launch of
@@ -243,6 +247,83 @@ def _tile_tensor(slide: bytes, device):
     return out
 
 
+def _transform_bound(tiles) -> tuple[float, str]:
+    """jpeg_transform: 12 B in and 12 B out a pixel, ~112 operations."""
+    return _bound(tiles.numel() * 4 * 2, tiles.numel() // 3 * 112.0)
+
+
+def _inverse_bound(coef) -> tuple[float, str]:
+    """jpeg_inverse: 12 B in and 3 B out a pixel, ~111 operations."""
+    return _bound(coef.numel() * 4 + coef.numel(), coef.numel() // 3 * 111.0)
+
+
+def block_levels(tiles) -> dict:
+    """``jpeg_transform`` and ``jpeg_inverse`` at the tile counts of each
+    level of the study (4096, 1024, …, 1 for a 16384² slide): the first n
+    of level 0's (N, 3, 256, 256) batch ``tiles``, the inverse on the
+    transform's coefficients of them. ``level_ms``: one call through the
+    wrapper at each level (CUDA events, median of 10), each beside its
+    bound; ``copy_ms``: at level 0, one PyTorch copy that moves the same
+    bytes with no arithmetic (float32 → float32 for the transform, int32 →
+    uint8 for the inverse), what the card's memory delivers to a plain
+    streaming kernel. It uses whichever ``repro_torch`` is first on
+    ``sys.path``, so it times another commit's tree too."""
+    import torch
+    from repro_torch.kernels import ops
+
+    counts = []
+    n = tiles.shape[0]
+    while n >= 1:
+        counts.append(n)
+        n //= 4
+    out = {name: dict(level_tiles=counts, level_ms=[], level_bound_ms=[])
+           for name in ("jpeg_transform", "jpeg_inverse")}
+    for n in counts:
+        t = tiles[:n]
+        c = ops.jpeg_transform(t)
+        for name, fn, x, bound in (
+                ("jpeg_transform", ops.jpeg_transform, t, _transform_bound),
+                ("jpeg_inverse", ops.jpeg_inverse, c, _inverse_bound)):
+            out[name]["level_ms"].append(_time_ms(lambda: fn(x)))
+            out[name]["level_bound_ms"].append(bound(x)[0])
+        del t, c
+        torch.cuda.empty_cache()
+    dst = torch.empty_like(tiles)
+    out["jpeg_transform"]["copy_ms"] = _time_ms(lambda: dst.copy_(tiles))
+    dst = torch.empty(tiles.shape, dtype=torch.uint8, device=tiles.device)
+    c = tiles.to(torch.int32)
+    out["jpeg_inverse"]["copy_ms"] = _time_ms(lambda: dst.copy_(c))
+    del dst, c
+    torch.cuda.empty_cache()
+    for row in out.values():
+        row["level_ms_sum"] = sum(row["level_ms"])
+        row["level_bound_ms_sum"] = sum(row["level_bound_ms"])
+    return out
+
+
+def block_levels_ab(tiles0: int, seed: int) -> dict:
+    """:func:`block_levels` on ``tiles0`` 256² tiles of two kinds: uniform
+    u8 noise (made on the card from ``seed``) and slide tiles (the 256
+    tiles of a 4096² SyntheticScanner slide from ``seed``, repeated), whose
+    flat blocks give the transform many sums of exactly 0. Like
+    ``entropy_levels``, it times whichever ``repro_torch`` is first on
+    ``sys.path``: to compare two trees on one card, call it in one process
+    per tree with that tree's ``src`` first (parent, this, this, parent;
+    PERF.md's A/B)."""
+    import torch
+    from repro_torch.wsi import SyntheticScanner
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randint(0, 256, (tiles0, 3, 256, 256), generator=gen,
+                          device="cuda", dtype=torch.int32).to(torch.float32)
+    out = {"noise": block_levels(noise)}
+    del noise
+    scan = _tile_tensor(SyntheticScanner(seed=seed).scan(4096, 4096, 256),
+                        torch.device("cuda"))
+    slide = scan.repeat(-(-tiles0 // scan.shape[0]), 1, 1, 1)[:tiles0]
+    out["slide"] = block_levels(slide.contiguous())
+    return out
+
+
 def check_kernels(size: int, slide: bytes, seed: int) -> dict:
     """Phase 3: each kernel vs its plain version at main-path shapes."""
     import torch
@@ -308,8 +389,7 @@ def check_kernels(size: int, slide: bytes, seed: int) -> dict:
         err = max(err, float((got - plain).abs().max()))
         del got, plain, bad
     del noise
-    px = tiles.numel() // 3
-    bound_ms, bound_by = _bound(tiles.numel() * 4 * 2, px * 112.0)
+    bound_ms, bound_by = _transform_bound(tiles)
     results["jpeg_transform"] = dict(
         name="jpeg_transform", route="cuda",
         source="src/repro_torch/kernels/csrc/jpeg_transform.cu",
@@ -321,8 +401,6 @@ def check_kernels(size: int, slide: bytes, seed: int) -> dict:
         shape=list(tiles.shape))
 
     # jpeg_inverse on the coefficients of the slide tiles and of the noise
-    del tiles
-    torch.cuda.empty_cache()
     mism, err = 0, 0.0
     for kind, c in coefs.items():
         got = ops.jpeg_inverse(c)
@@ -339,8 +417,7 @@ def check_kernels(size: int, slide: bytes, seed: int) -> dict:
         torch.cuda.empty_cache()
     c = coefs.pop("slide")
     del coefs
-    px = c.numel() // 3
-    bound_ms, bound_by = _bound(c.numel() * 4 + c.numel(), px * 111.0)
+    bound_ms, bound_by = _inverse_bound(c)
     results["jpeg_inverse"] = dict(
         name="jpeg_inverse", route="cuda",
         source="src/repro_torch/kernels/csrc/jpeg_inverse.cu",
@@ -351,6 +428,10 @@ def check_kernels(size: int, slide: bytes, seed: int) -> dict:
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         shape=list(c.shape))
     del c
+    torch.cuda.empty_cache()
+    for name, levels in block_levels(tiles).items():
+        results[name].update(levels)
+    del tiles
     torch.cuda.empty_cache()
     results.update(_check_per_tile_kernels(size, gen))
     return results

@@ -7,10 +7,11 @@ root::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
          -shared -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. ``-fmad=false``
-keeps nvcc from contracting a multiply and an add into one FMA: the kernels
-must round exactly where their plain versions do. ``--use_fast_math`` is
+The file name carries a hash of the source, of every header in ``csrc/``
+(``*.cuh``, which the sources may include) and of the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
+``-fmad=false`` keeps nvcc from contracting a multiply and an add into one
+FMA: the kernels must round exactly where their plain versions do. ``--use_fast_math`` is
 never used. All sources build in parallel, one nvcc each.
 
 Nothing here runs at import time: ``nvcc`` and the ``ctypes`` load happen
@@ -41,9 +42,9 @@ _ENTRIES = {
     "downsample2x2": ("downsample2x2_q_launch",
                       [_P, _P, _I64, _I64, _I64, _P]),
     "jpeg_transform": ("jpeg_transform_launch",
-                       [_P, _P, _I64, _I64, _I64, _P, _P, _P]),
+                       [_P, _P, _I64, _I64, _I64, _P, _P]),
     "jpeg_inverse": ("jpeg_inverse_launch",
-                     [_P, _P, _I64, _I64, _I64, _P, _P, _P]),
+                     [_P, _P, _I64, _I64, _I64, _P, _P]),
     "rgb2ycbcr": ("rgb2ycbcr_launch", [_P, _P, _I64, _I64, _P]),
     "dct8x8_quant": ("dct8x8_quant_launch",
                      [_P, _P, _I64, _I64, _P, _P, _P]),
@@ -66,8 +67,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -11,141 +11,148 @@
 // operations -- ~7 operations per byte, below the ~20 the card's float32
 // (non-tensor) rate needs before arithmetic would bind. At 3.35 TB/s a
 // level of 4096 tiles of 256^2 (3.22 GB in, 0.81 GB out) cannot take less
-// than ~1.2 ms.
+// than ~1.2 ms; a PyTorch int32 -> u8 copy of the same bytes takes ~1.4 ms
+// on an H100, this kernel ~1.5 ms. Without FMA (exactness, below) a
+// product and a sum are two issue slots, so the arithmetic needs most of
+// the SM's issue rate at that bandwidth: the kernel spends as few integer
+// instructions per sample as it can (offsets inside a 256^2 tile are
+// immediates) and keeps the next strip's loads in flight (kAhead = 1: 7 %
+// faster than without).
 //
-// Design: the mirror of jpeg_transform.cu. One CTA of 64 x 8 threads
-// covers an 8-row strip, 64 columns wide (eight 8x8 blocks side by side),
-// of one tile and all three channels:
-//   1. each thread loads its position's three coefficients (each warp reads
-//      one 128-B span per channel), multiplies by the channel's
-//      quantization entry and writes them to shared memory;
-//   2. row pass T = C^T.X: thread (i, c) sums C[j][i] * X[j][c] over j;
-//   3. column pass Y = T.C: thread (i, c) sums T[i][k] * C[k][c%8] over k;
-//   4. the thread now holds Y, Cb, Cr of its own pixel: the inverse
-//      polynomials, rintf, clamp to [0, 255], and one u8 store per channel
-//      (each warp writes one 32-B span per channel).
+// Design (block8x8.cuh): a persistent grid of warps, each walking 8 x 32
+// strips (four 8x8 blocks, all three channels) with the next strip's 24
+// loads a lane in flight while it computes the current one:
+//   1. lane l loads column l (each load one 128-B span across the warp)
+//      and dequantizes it with its column's table entries, Q[ch][j][l & 7],
+//      held in registers for the life of the warp;
+//   2. pass 1 down the column: T[i][k] = sum_j C[j][i] X[j][k];
+//   3. a warp-private transpose (padded shared memory, __syncwarp only):
+//      lane 8b + i gets row i of block b;
+//   4. pass 2 along the row: Y[i][l] = sum_k T[i][k] C[k][l], l = 0..7;
+//   5. the inverse polynomials, rintf, clamp to [0, 255], and one 8-byte
+//      store of the row's eight samples per channel.
 // Device memory sees each input and output byte once. The output is u8
 // directly: the TPU kernel's int32 output existed only for its tiling. The
-// DCT matrix C and the three tables come in as a by-value kernel argument
-// (C is numpy's dct_matrix(), never rebuilt here with cosf). Any H and W
-// that are multiples of 8 work (no 128-lane rule).
+// quantization tables come in as a by-value kernel argument; the DCT matrix
+// C is numpy's dct_matrix(), compiled in as immediates (never rebuilt here
+// with cosf). Any H and W that are multiples of 8 work (no 128-lane
+// rule).
 //
 // Exactness: every product and sum is written with __fmul_rn / __fadd_rn /
 // __fsub_rn and the library is built with -fmad=false, so nothing is
-// contracted into an FMA. The dequantize, both 8-term sums and the
-// polynomial terms run in the same order as the plain version
-// (repro_torch/kernels/ref.py, jpeg_inverse_ref), which therefore matches
-// this kernel bit for bit. rintf rounds half to even, like torch.round.
-#include <cuda_runtime.h>
+// contracted into an FMA. The dequantize, both 8-term sums (the first
+// product, then += for j or k = 1..7) and the polynomial terms run in the
+// same order as the plain version (repro_torch/kernels/ref.py,
+// jpeg_inverse_ref), which therefore matches this kernel bit for bit.
+// rintf rounds half to even, like torch.round.
 #include <stdint.h>
+
+#include "block8x8.cuh"
 
 namespace {
 
-constexpr int kStripW = 64;  // columns per CTA (eight 8x8 blocks)
+using namespace block8x8;
 
-struct Operands {
-  float C[64];     // DCT-II matrix, row-major: C[i * 8 + j]
-  float Q[3][64];  // quantization tables for Y, Cb, Cr, row-major
-};
-
-__device__ __forceinline__ uint8_t to_u8(float v) {
-  return (uint8_t)fminf(fmaxf(rintf(v), 0.0f), 255.0f);
+__device__ __forceinline__ uint32_t to_u8(float v) {
+  return (uint32_t)fminf(fmaxf(rintf(v), 0.0f), 255.0f);
 }
 
-__global__ void __launch_bounds__(kStripW * 8)
+__device__ __forceinline__ uint2 pack8(const float (&v)[8]) {
+  return make_uint2(
+      to_u8(v[0]) | to_u8(v[1]) << 8 | to_u8(v[2]) << 16 | to_u8(v[3]) << 24,
+      to_u8(v[4]) | to_u8(v[5]) << 8 | to_u8(v[6]) << 16 | to_u8(v[7]) << 24);
+}
+
+template <int kTile>
+__global__ void __launch_bounds__(kThreads, 2)
 jpeg_inverse_kernel(const int* __restrict__ coef, uint8_t* __restrict__ out,
-                    int64_t H, int64_t W, int64_t strips, Operands ops) {
-  __shared__ float sC[64];
-  __shared__ float sQ[3][64];
-  __shared__ float px[3][8][kStripW];    // the strip's dequantized blocks
-  __shared__ float rows[3][8][kStripW];  // row pass result T = C^T.X
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kStripW + tx;
-  if (tid < 64) {
-    sC[tid] = ops.C[tid];
-  } else if (tid < 64 + 3 * 64) {
-    const int ch = (tid - 64) / 64, i = (tid - 64) % 64;
-    sQ[ch][i] = ops.Q[ch][i];
-  }
-  __syncthreads();
-
-  const int64_t brows = H / 8;
-  const int64_t b = blockIdx.x;
-  const int64_t strip = b % strips;
-  const int64_t rest = b / strips;
-  const int64_t br = rest % brows;
-  const int64_t n = rest / brows;
-  const int64_t col = strip * kStripW + tx;
-  const bool active = col < W;
-  const int64_t plane = H * W;
-  const int64_t off = n * 3 * plane + (br * 8 + ty) * W + col;
-  const int l = tx & 7;
-
-  if (active) {  // dequantize: X = coef * Q, exact for in-range values
+                    Geometry g, Tables tables) {
+  __shared__ Buffer bufs[kWarps];
+  Buffer& buf = bufs[threadIdx.x / 32];
+  const int lane = threadIdx.x & 31;
+  float q[3][8];  // this lane's column of each table: Q[ch][j][lane & 7]
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      px[ch][ty][tx] = __fmul_rn((float)coef[off + ch * plane],
-                                 sQ[ch][ty * 8 + l]);
-  }
-  __syncthreads();
+  for (int ch = 0; ch < 3; ++ch)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) q[ch][j] = tables.Q[ch][j * 8 + (lane & 7)];
 
-  if (active) {  // row pass: T[i][k] = sum_j C[j][i] X[j][k], i = ty
+  const Dims<kTile> d(g);
+  walk<kTile, 1>(coef, g, [&](const Strip& s, const int (&x)[3][8]) {
+    float t[3][8];
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      float acc = __fmul_rn(sC[ty], px[ch][0][tx]);
+    for (int ch = 0; ch < 3; ++ch) {  // pass 1, i = 0..7, X = coef * Q
+      float xq[8];
 #pragma unroll
-      for (int j = 1; j < 8; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(sC[j * 8 + ty], px[ch][j][tx]));
-      rows[ch][ty][tx] = acc;
+      for (int j = 0; j < 8; ++j)
+        xq[j] = __fmul_rn((float)x[ch][j], q[ch][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float acc = __fmul_rn(dct(i), xq[0]);
+#pragma unroll
+        for (int j = 1; j < 8; ++j)
+          acc = __fadd_rn(acc, __fmul_rn(dct(j * 8 + i), xq[j]));
+        t[ch][i] = acc;
+      }
     }
-  }
-  __syncthreads();
-
-  if (active) {  // column pass: Y[i][l] = sum_k T[i][k] C[k][l]
-    const int base = tx - l;
-    float y[3];
+    transpose(buf, t, lane);
+    float y[3][8];
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      float acc = __fmul_rn(rows[ch][ty][base], sC[l]);
+    for (int ch = 0; ch < 3; ++ch)  // pass 2, l = 0..7
 #pragma unroll
-      for (int k = 1; k < 8; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(rows[ch][ty][base + k], sC[k * 8 + l]));
-      y[ch] = acc;
-    }
+      for (int l = 0; l < 8; ++l) {
+        float acc = __fmul_rn(t[ch][0], dct(l));
+#pragma unroll
+        for (int k = 1; k < 8; ++k)
+          acc = __fadd_rn(acc, __fmul_rn(t[ch][k], dct(k * 8 + l)));
+        y[ch][l] = acc;
+      }
     // y += 128; r = y + 1.402 cr; g = y - 0.344136 cb - 0.714136 cr;
     // b = y + 1.772 cb -- left to right
-    const float yy = __fadd_rn(y[0], 128.0f);
-    const float r = __fadd_rn(yy, __fmul_rn(1.402f, y[2]));
-    const float g = __fsub_rn(__fsub_rn(yy, __fmul_rn(0.344136f, y[1])),
-                              __fmul_rn(0.714136f, y[2]));
-    const float bl = __fadd_rn(yy, __fmul_rn(1.772f, y[1]));
-    out[off] = to_u8(r);
-    out[off + plane] = to_u8(g);
-    out[off + 2 * plane] = to_u8(bl);
-  }
+    float r[8], gr[8], bl[8];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) {
+      const float yy = __fadd_rn(y[0][l], 128.0f);
+      r[l] = __fadd_rn(yy, __fmul_rn(1.402f, y[2][l]));
+      gr[l] = __fsub_rn(__fsub_rn(yy, __fmul_rn(0.344136f, y[1][l])),
+                        __fmul_rn(0.714136f, y[2][l]));
+      bl[l] = __fadd_rn(yy, __fmul_rn(1.772f, y[1][l]));
+    }
+    if ((lane & ~7) < s.width) {  // block lane / 8 lies inside the tile
+      uint8_t* o = out + s.base + (lane & 7) * d.W + (lane & ~7);
+      __stcs(reinterpret_cast<uint2*>(o), pack8(r));
+      __stcs(reinterpret_cast<uint2*>(o + d.plane), pack8(gr));
+      __stcs(reinterpret_cast<uint2*>(o + 2 * d.plane), pack8(bl));
+    }
+  });
+}
+
+template <int kTile>
+cudaError_t launch(const int* coef, uint8_t* out, const Geometry& g,
+                   const Tables& tables, void* stream) {
+  unsigned grid;
+  const cudaError_t err =
+      persistent_grid<jpeg_inverse_kernel<kTile>>(g, &grid);
+  if (err != cudaSuccess) return err;
+  jpeg_inverse_kernel<kTile><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      coef, out, g, tables);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // coef: (N, 3, H, W) int32, contiguous, on the device; out: (N, 3, H, W)
-// u8. c_host: the 64 floats of the DCT matrix; q_host: 3 x 64 floats, the
-// Y, Cb and Cr quantization tables (both on the host: they travel as
-// kernel arguments). H and W must be multiples of 8.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// u8, 16-byte aligned. q_host: 3 x 64 floats on the host, the Y, Cb and Cr
+// quantization tables (a kernel argument). H and W must be multiples of 8.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape or output the kernel does not take.
 extern "C" int jpeg_inverse_launch(const int* coef, uint8_t* out, int64_t N,
-                                   int64_t H, int64_t W, const float* c_host,
-                                   const float* q_host, void* stream) {
+                                   int64_t H, int64_t W, const float* q_host,
+                                   void* stream) {
   if (N == 0) return 0;
-  if (H <= 0 || W <= 0 || H % 8 || W % 8)
-    return (int)cudaErrorInvalidValue;
-  Operands ops;
-  for (int i = 0; i < 64; ++i) ops.C[i] = c_host[i];
-  for (int c = 0; c < 3; ++c)
-    for (int i = 0; i < 64; ++i) ops.Q[c][i] = q_host[c * 64 + i];
-  const int64_t strips = (W + kStripW - 1) / kStripW;
-  const int64_t blocks = N * (H / 8) * strips;
-  jpeg_inverse_kernel<<<(unsigned)blocks, dim3(kStripW, 8), 0,
-                        (cudaStream_t)stream>>>(coef, out, H, W, strips, ops);
-  return (int)cudaGetLastError();
+  Geometry g;
+  if (!make_geometry(out, N, H, W, &g)) return (int)cudaErrorInvalidValue;
+  const Tables tables = make_tables(q_host);
+  return (int)(H == kPipelineTile && W == kPipelineTile
+                   ? launch<kPipelineTile>(coef, out, g, tables, stream)
+                   : launch<0>(coef, out, g, tables, stream));
 }

@@ -10,140 +10,152 @@
 // floating-point operations -- ~4 operations per byte, far below the ~20
 // the card's float32 (non-tensor) rate needs before arithmetic would bind.
 // At 3.35 TB/s a level of 4096 tiles of 256^2 (6.4 GB moved) cannot take
-// less than ~1.9 ms.
+// less than ~1.9 ms; a PyTorch float32 copy of the same bytes takes ~2.1
+// ms on an H100, the kernel ~2.4 ms.
 //
-// Design: one CTA of 64 x 8 threads covers an 8-row strip, 64 columns wide
-// (eight 8x8 blocks side by side), of one tile and all three channels:
-//   1. each thread loads its pixel's R, G, B (each warp reads one 128-B
-//      span per channel) and writes Y, Cb, Cr to shared memory;
-//   2. row pass T = C.X: thread (i, c) sums C[i][j] * X[j][c] over j;
-//   3. column pass Y = T.C^T: thread (i, c) sums T[i][k] * C[c%8][k] over k;
-//   4. q = Y / Q, stored as int32 round-half-even, one coalesced store per
-//      channel.
-// Pixels stay in shared memory between the passes, so device memory sees
-// each input and output byte exactly once. The DCT matrix C and the three
-// quantization tables come in as a by-value kernel argument (they are
-// operands: C is numpy's dct_matrix(), never rebuilt here with cosf) and
-// are staged into shared memory. Any H and W that are multiples of 8 work
-// (no 128-lane rule): threads whose column lies past the tile edge only
-// join the barriers.
-// Wider loads, reading tiles straight from the (3, H, W) level and fusing
-// the next level's downsample are later work.
+// Design (block8x8.cuh), the mirror of jpeg_inverse.cu: a persistent grid
+// of warps, each walking 8 x 32 strips (four 8x8 blocks, all three
+// channels), a strip's 24 loads a lane issued before any is used. Unlike
+// the inverse it does not load the next strip ahead (kAhead = 0): with the
+// 24 registers of a double buffer the kernel spills at its 128-register
+// cap and ran 3-5 % slower on an H100; the other warps of the SM (16 a
+// SM) hide the loads' latency instead.
+//   1. lane l loads column l's R, G, B (each load one 128-B span across the
+//      warp) and converts its 8 pixels to level-shifted Y, Cb, Cr;
+//   2. pass 1 down the column: T[i][k] = sum_j C[i][j] X[j][k];
+//   3. a warp-private transpose (padded shared memory, __syncwarp only):
+//      lane 8b + i gets row i of block b;
+//   4. pass 2 along the row: Y[i][l] = sum_k T[i][k] C[l][k], l = 0..7;
+//   5. q = Y / Q with row i of each table (registers, loaded once per
+//      warp), stored as int32 round-half-even: two 16-byte stores of the
+//      row's eight coefficients per channel.
+// Device memory sees each input and output byte exactly once. The
+// quantization tables come in as a by-value kernel argument; the DCT
+// matrix C is numpy's dct_matrix(), compiled in as immediates (never
+// rebuilt here with cosf). Any H and W that are multiples of 8 work (no
+// 128-lane rule). Reading tiles
+// straight from the (3, H, W) level and fusing the next level's downsample
+// are later work.
 //
 // Exactness: every product and sum is written with __fmul_rn / __fadd_rn /
 // __fsub_rn and the division with __fdiv_rn, and the library is built with
 // -fmad=false, so nothing is contracted into an FMA. The polynomial terms
-// and both 8-term sums run in the same order as the plain version
-// (repro_torch/kernels/ref.py), which therefore matches this kernel bit for
-// bit. rintf rounds half to even, like torch.round and jnp.round.
-#include <cuda_runtime.h>
+// and both 8-term sums (the first product, then += for j or k = 1..7) run
+// in the same order as the plain version (repro_torch/kernels/ref.py),
+// which therefore matches this kernel bit for bit. rintf rounds half to
+// even, like torch.round and jnp.round.
 #include <stdint.h>
+
+#include "block8x8.cuh"
 
 namespace {
 
-constexpr int kStripW = 64;  // columns per CTA (eight 8x8 blocks)
+using namespace block8x8;
 
-struct Operands {
-  float C[64];     // DCT-II matrix, row-major: C[i * 8 + j]
-  float Q[3][64];  // quantization tables for Y, Cb, Cr, row-major
-};
-
-__global__ void __launch_bounds__(kStripW * 8)
+template <int kTile>
+__global__ void __launch_bounds__(kThreads, 2)
 jpeg_transform_kernel(const float* __restrict__ x, int* __restrict__ out,
-                      int64_t H, int64_t W, int64_t strips, Operands ops) {
-  __shared__ float sC[64];
-  __shared__ float sQ[3][64];
-  __shared__ float px[3][8][kStripW];    // the strip's Y, Cb, Cr
-  __shared__ float rows[3][8][kStripW];  // row pass result T = C.X
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kStripW + tx;
-  if (tid < 64) {
-    sC[tid] = ops.C[tid];
-  } else if (tid < 64 + 3 * 64) {
-    const int ch = (tid - 64) / 64, i = (tid - 64) % 64;
-    sQ[ch][i] = ops.Q[ch][i];
-  }
-
-  const int64_t brows = H / 8;
-  const int64_t b = blockIdx.x;
-  const int64_t strip = b % strips;
-  const int64_t rest = b / strips;
-  const int64_t br = rest % brows;
-  const int64_t n = rest / brows;
-  const int64_t col = strip * kStripW + tx;
-  const bool active = col < W;
-  const int64_t plane = H * W;
-  const int64_t off = n * 3 * plane + (br * 8 + ty) * W + col;
-
-  if (active) {
-    const float r = x[off], g = x[off + plane], bl = x[off + 2 * plane];
-    // y = 0.299 r + 0.587 g + 0.114 b - 128, left to right
-    px[0][ty][tx] = __fsub_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(0.299f, r), __fmul_rn(0.587f, g)),
-                  __fmul_rn(0.114f, bl)),
-        128.0f);
-    // cb = -0.168736 r - 0.331264 g + 0.5 b
-    px[1][ty][tx] = __fadd_rn(
-        __fsub_rn(__fmul_rn(-0.168736f, r), __fmul_rn(0.331264f, g)),
-        __fmul_rn(0.5f, bl));
-    // cr = 0.5 r - 0.418688 g - 0.081312 b
-    px[2][ty][tx] = __fsub_rn(
-        __fsub_rn(__fmul_rn(0.5f, r), __fmul_rn(0.418688f, g)),
-        __fmul_rn(0.081312f, bl));
-  }
-  __syncthreads();
-
-  if (active) {  // row pass: T[i][k] = sum_j C[i][j] X[j][k], i = ty
+                      Geometry g, Tables tables) {
+  __shared__ Buffer bufs[kWarps];
+  Buffer& buf = bufs[threadIdx.x / 32];
+  const int lane = threadIdx.x & 31;
+  float q[3][8];  // row lane & 7 of each table: Q[ch][lane & 7][l]
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      float acc = __fmul_rn(sC[ty * 8], px[ch][0][tx]);
+  for (int ch = 0; ch < 3; ++ch)
 #pragma unroll
-      for (int j = 1; j < 8; ++j)
-        acc = __fadd_rn(acc, __fmul_rn(sC[ty * 8 + j], px[ch][j][tx]));
-      rows[ch][ty][tx] = acc;
+    for (int l = 0; l < 8; ++l) q[ch][l] = tables.Q[ch][(lane & 7) * 8 + l];
+
+  const Dims<kTile> d(g);
+  walk<kTile, 0>(x, g, [&](const Strip& s, const float (&px)[3][8]) {
+    float t[3][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float r = px[0][j], gr = px[1][j], bl = px[2][j];
+      // y = 0.299 r + 0.587 g + 0.114 b - 128, left to right
+      t[0][j] = __fsub_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(0.299f, r), __fmul_rn(0.587f, gr)),
+                    __fmul_rn(0.114f, bl)),
+          128.0f);
+      // cb = -0.168736 r - 0.331264 g + 0.5 b
+      t[1][j] = __fadd_rn(
+          __fsub_rn(__fmul_rn(-0.168736f, r), __fmul_rn(0.331264f, gr)),
+          __fmul_rn(0.5f, bl));
+      // cr = 0.5 r - 0.418688 g - 0.081312 b
+      t[2][j] = __fsub_rn(
+          __fsub_rn(__fmul_rn(0.5f, r), __fmul_rn(0.418688f, gr)),
+          __fmul_rn(0.081312f, bl));
     }
-  }
-  __syncthreads();
-
-  if (active) {  // column pass: Y[i][l] = sum_k T[i][k] C[l][k]
-    const int l = tx & 7;
-    const int base = tx - l;
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      float acc = __fmul_rn(rows[ch][ty][base], sC[l * 8]);
+    for (int ch = 0; ch < 3; ++ch) {  // pass 1, i = 0..7
+      float col[8];
 #pragma unroll
-      for (int k = 1; k < 8; ++k)
-        acc = __fadd_rn(acc,
-                        __fmul_rn(rows[ch][ty][base + k], sC[l * 8 + k]));
-      const float q = sQ[ch][ty * 8 + l];
-      out[off + ch * plane] = (int)rintf(__fdiv_rn(acc, q));
+      for (int i = 0; i < 8; ++i) {
+        float acc = __fmul_rn(dct(i * 8), t[ch][0]);
+#pragma unroll
+        for (int j = 1; j < 8; ++j)
+          acc = __fadd_rn(acc, __fmul_rn(dct(i * 8 + j), t[ch][j]));
+        col[i] = acc;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) t[ch][i] = col[i];
     }
-  }
+    transpose(buf, t, lane);
+    const bool live = (lane & ~7) < s.width;  // block lane / 8 in the tile
+    int* o = out + s.base + (lane & 7) * d.W + (lane & ~7);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {  // pass 2, l = 0..7, and quantize
+      int v[8];
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        float acc = __fmul_rn(t[ch][0], dct(l * 8));
+#pragma unroll
+        for (int k = 1; k < 8; ++k)
+          acc = __fadd_rn(acc, __fmul_rn(t[ch][k], dct(l * 8 + k)));
+        // A zero sum (most of a flat block's) quantizes to 0, as the
+        // division would give it: it skips the division, whose range check
+        // sends a zero dividend to its slow path (without this, slide
+        // tiles took ~20 % longer than noise on an H100).
+        const int k = (int)rintf(__fdiv_rn(acc == 0.0f ? 1.0f : acc,
+                                           q[ch][l]));
+        v[l] = acc == 0.0f ? 0 : k;
+      }
+      if (live) {
+        int4* dst = reinterpret_cast<int4*>(o + ch * d.plane);
+        __stcs(dst, make_int4(v[0], v[1], v[2], v[3]));
+        __stcs(dst + 1, make_int4(v[4], v[5], v[6], v[7]));
+      }
+    }
+  });
+}
+
+template <int kTile>
+cudaError_t launch(const float* x, int* out, const Geometry& g,
+                   const Tables& tables, void* stream) {
+  unsigned grid;
+  const cudaError_t err =
+      persistent_grid<jpeg_transform_kernel<kTile>>(g, &grid);
+  if (err != cudaSuccess) return err;
+  jpeg_transform_kernel<kTile><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      x, out, g, tables);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (N, 3, H, W) float32 holding u8 values, contiguous, on the device;
-// out: (N, 3, H, W) int32. c_host: the 64 floats of the DCT matrix;
-// q_host: 3 x 64 floats, the Y, Cb and Cr quantization tables (both on the
-// host: they travel as kernel arguments). H and W must be multiples of 8.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// out: (N, 3, H, W) int32, 16-byte aligned. q_host: 3 x 64 floats on the
+// host, the Y, Cb and Cr quantization tables (a kernel argument). H and W
+// must be multiples of 8. Returns cudaGetLastError() after the launch
+// (0 = launched), or cudaErrorInvalidValue for a shape or output the
+// kernel does not take.
 extern "C" int jpeg_transform_launch(const float* x, int* out, int64_t N,
                                      int64_t H, int64_t W,
-                                     const float* c_host,
                                      const float* q_host, void* stream) {
   if (N == 0) return 0;
-  if (H <= 0 || W <= 0 || H % 8 || W % 8)
-    return (int)cudaErrorInvalidValue;
-  Operands ops;
-  for (int i = 0; i < 64; ++i) ops.C[i] = c_host[i];
-  for (int c = 0; c < 3; ++c)
-    for (int i = 0; i < 64; ++i) ops.Q[c][i] = q_host[c * 64 + i];
-  const int64_t strips = (W + kStripW - 1) / kStripW;
-  const int64_t blocks = N * (H / 8) * strips;
-  jpeg_transform_kernel<<<(unsigned)blocks, dim3(kStripW, 8), 0,
-                          (cudaStream_t)stream>>>(x, out, H, W, strips,
-                                                  ops);
-  return (int)cudaGetLastError();
+  Geometry g;
+  if (!make_geometry(out, N, H, W, &g)) return (int)cudaErrorInvalidValue;
+  const Tables tables = make_tables(q_host);
+  return (int)(H == kPipelineTile && W == kPipelineTile
+                   ? launch<kPipelineTile>(x, out, g, tables, stream)
+                   : launch<0>(x, out, g, tables, stream));
 }

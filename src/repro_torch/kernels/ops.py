@@ -71,7 +71,7 @@ def _frozen(a: np.ndarray) -> np.ndarray:
 # work is its launch (the per-tile path calls these kernels per tile).
 @lru_cache(maxsize=None)
 def _host_dct() -> np.ndarray:
-    """The (8, 8) float32 DCT matrix the transform kernels take by value."""
+    """The (8, 8) float32 DCT matrix ``dct8x8_quant`` takes by value."""
     return _frozen(np.array(ref.dct_matrix(), np.float32))
 
 
@@ -120,11 +120,11 @@ def jpeg_transform(tiles: torch.Tensor, qluma=None, qchroma=None,
     out = torch.empty(tiles.shape, dtype=torch.int32, device=tiles.device)
     if N == 0:
         return out
-    C, q = _host_dct(), _host_tables(qluma, qchroma)
+    q = _host_tables(qluma, qchroma)
     with torch.cuda.device(tiles.device):
         err = library("jpeg_transform")(
-            tiles.data_ptr(), out.data_ptr(), N, H, W, C.ctypes.data,
-            q.ctypes.data, _stream())
+            tiles.data_ptr(), out.data_ptr(), N, H, W, q.ctypes.data,
+            _stream())
     _raise_on_error(err, "jpeg_transform")
     jpeg_transform.launches += 1
     return out
@@ -177,11 +177,11 @@ def jpeg_inverse(coef: torch.Tensor, qluma=None, qchroma=None,
     out = torch.empty(coef.shape, dtype=torch.uint8, device=coef.device)
     if N == 0:
         return out
-    C, q = _host_dct(), _host_tables(qluma, qchroma)
+    q = _host_tables(qluma, qchroma)
     with torch.cuda.device(coef.device):
         err = library("jpeg_inverse")(
-            coef.data_ptr(), out.data_ptr(), N, H, W, C.ctypes.data,
-            q.ctypes.data, _stream())
+            coef.data_ptr(), out.data_ptr(), N, H, W, q.ctypes.data,
+            _stream())
     _raise_on_error(err, "jpeg_inverse")
     jpeg_inverse.launches += 1
     return out

@@ -52,20 +52,76 @@ def test_downsample2x2_kernel_matches_plain(cuda_device):
         assert torch.equal(got, ops.downsample2x2(pix, impl="ref"))
 
 
+def _block_batches(rng) -> list[np.ndarray]:
+    """Inputs of the 8×8 block kernels: slide tiles, noise, flat 8×8
+    blocks (sums that cancel to exactly 0, which the transform does not
+    divide), and the edges of their warp-per-8×32-strip walk: H = W = 8,
+    W = 40 and 136 (not multiples of 32), N = 1, and (600, 3, 64, 64),
+    where each persistent warp walks several strips."""
+    flat = np.repeat(np.repeat(rng.integers(0, 256, size=(4, 3, 32, 32)),
+                               8, axis=2), 8, axis=3).astype(np.float32)
+    return [_slide_tiles(7, 1024), flat, *(
+        rng.integers(0, 256, size=shape).astype(np.float32) for shape in (
+            (8, 3, 256, 256), (3, 3, 24, 136), (1, 3, 8, 8), (2, 3, 16, 40),
+            (1, 3, 256, 256), (600, 3, 64, 64)))]
+
+
+def _custom_tables(rng):
+    return tuple(rng.integers(1, 100, size=(8, 8)).astype(np.float32)
+                 for _ in range(2))
+
+
+def _offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts 16 bytes into its storage."""
+    buf = torch.empty(t.numel() + 16 // t.element_size(), dtype=t.dtype,
+                      device=t.device)
+    view = buf[16 // t.element_size():].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 0 and view.data_ptr() != buf.data_ptr()
+    return view
+
+
+def _block_cases(t: torch.Tensor, tables):
+    """(input, tables) pairs: default tables, custom ones, and an offset
+    view."""
+    return ((t, (None, None)), (t, tables), (_offset_copy(t), (None, None)))
+
+
 def test_jpeg_transform_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(12)
-    for tiles in (_slide_tiles(7, 1024),
-                  rng.integers(0, 256, size=(8, 3, 256, 256)),
-                  rng.integers(0, 256, size=(3, 3, 24, 136))):
-        t = torch.from_numpy(np.asarray(tiles, np.float32)).to(cuda_device)
-        n0 = ops.jpeg_transform.launches
-        got = ops.jpeg_transform(t)
-        assert ops.jpeg_transform.launches == n0 + 1
-        # same operation order, no FMA contraction: equal on any input
-        assert torch.equal(got, ops.jpeg_transform(t, impl="ref"))
+    tables = _custom_tables(rng)
+    for tiles in _block_batches(rng):
+        t = torch.from_numpy(tiles).to(cuda_device)
+        for x, q in _block_cases(t, tables):
+            n0 = ops.jpeg_transform.launches
+            got = ops.jpeg_transform(x, *q)
+            assert ops.jpeg_transform.launches == n0 + 1
+            # same operation order, no FMA contraction: equal on any input
+            assert torch.equal(got, ops.jpeg_transform(x, *q, impl="ref")), \
+                (tuple(x.shape), q[0] is not None)
     empty = ops.jpeg_transform(torch.zeros((0, 3, 256, 256),
                                            device=cuda_device))
     assert empty.shape == (0, 3, 256, 256) and empty.dtype == torch.int32
+
+
+@pytest.mark.parametrize("name,dtype", [("jpeg_transform", torch.float32),
+                                        ("jpeg_inverse", torch.int32)])
+def test_block_kernels_take_views_off_a_16_byte_boundary(cuda_device, name,
+                                                         dtype):
+    """The kernels read their input one 4-byte sample a lane: contiguous
+    views 1, 2 and 3 elements into their storage launch once each and equal
+    the plain version bit for bit."""
+    fn = getattr(ops, name)
+    n = 2 * 3 * 16 * 40
+    buf = torch.randint(0, 256, (3 + n,), dtype=torch.int32,
+                        device=cuda_device).to(dtype)
+    for off in (1, 2, 3):
+        x = buf[off:off + n].view(2, 3, 16, 40)
+        assert x.data_ptr() % 16 == 4 * off
+        n0 = fn.launches
+        got = fn(x)
+        assert fn.launches == n0 + 1
+        assert torch.equal(got, fn(x, impl="ref")), off
 
 
 def test_conversion_on_card_matches_cpu_plain_path(cuda_device):
@@ -90,16 +146,19 @@ def _jpgs(tiles_nchw: np.ndarray) -> list[bytes]:
 
 def test_jpeg_inverse_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(13)
-    noise = rng.integers(0, 256, size=(8, 3, 256, 256)).astype(np.float32)
-    for tiles in (_slide_tiles(7, 1024), noise,
-                  rng.integers(0, 256, size=(3, 3, 24, 136))):
-        coef = ops.jpeg_transform(torch.from_numpy(
-            np.asarray(tiles, np.float32)).to(cuda_device))
-        n0 = ops.jpeg_inverse.launches
-        got = ops.jpeg_inverse(coef)
-        assert ops.jpeg_inverse.launches == n0 + 1
-        assert got.dtype == torch.uint8
-        assert torch.equal(got, ops.jpeg_inverse(coef, impl="ref"))
+    tables = _custom_tables(rng)
+    for tiles in _block_batches(rng):
+        t = torch.from_numpy(tiles).to(cuda_device)
+        for x, q in _block_cases(t, tables):
+            coef = ops.jpeg_transform(x, *q)
+            if x.data_ptr() != t.data_ptr():  # the offset case
+                coef = _offset_copy(coef)
+            n0 = ops.jpeg_inverse.launches
+            got = ops.jpeg_inverse(coef, *q)
+            assert ops.jpeg_inverse.launches == n0 + 1
+            assert got.dtype == torch.uint8
+            assert torch.equal(got, ops.jpeg_inverse(coef, *q, impl="ref")), \
+                (tuple(x.shape), q[0] is not None)
     empty = ops.jpeg_inverse(torch.zeros((0, 3, 8, 8), dtype=torch.int32,
                                          device=cuda_device))
     assert empty.shape == (0, 3, 8, 8)

@@ -165,3 +165,54 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.downsample2x2(torch.zeros((3, 16, 16)))
     assert (ops.jpeg_transform.launches,
             ops.downsample2x2.launches) == before
+
+
+@pytest.mark.parametrize("name,dtype", [("jpeg_transform", torch.float32),
+                                        ("jpeg_inverse", torch.int32)])
+def test_block_wrappers_take_views_off_a_16_byte_boundary(name, dtype):
+    """The 8×8 block kernels read their input one 4-byte sample a lane, so
+    a contiguous view one element into its storage is taken like any other
+    input (only their outputs, which the wrappers allocate, must sit on a
+    16-byte boundary)."""
+    fn = getattr(ops, name)
+    g = torch.Generator().manual_seed(5)
+    buf = torch.randint(0, 256, (1 + 2 * 3 * 8 * 40,), generator=g,
+                        dtype=torch.int32).to(dtype)
+    view = buf[1:].view(2, 3, 8, 40)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    n0 = fn.launches
+    assert torch.equal(fn(view), fn(view.clone(), impl="ref"))
+    assert fn.launches == n0
+
+
+def test_build_target_covers_the_headers(tmp_path, monkeypatch):
+    """A kernel's library name hashes its source, every ``csrc/*.cuh`` and
+    the flags: an edited header must not load a stale library."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "shared.cuh").write_text("constexpr int kN = 1;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert _build._target("k") == first
+    (tmp_path / "shared.cuh").write_text("constexpr int kN = 2;\n")
+    second = _build._target("k")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "other.cuh").write_text("// another header\n")
+    assert _build._target("k") != second
+    (tmp_path / "k.cu").write_text('#include "shared.cuh"\n// edited\n')
+    assert _build._target("k") not in (first, second)
+
+
+def test_block_kernels_dct_immediates_equal_the_plain_matrix():
+    """``csrc/block8x8.cuh`` compiles the DCT matrix in as immediates (its
+    launchers take no C): its literals must be numpy's ``dct_matrix()`` in
+    float32, bit for bit."""
+    import re
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / "block8x8.cuh").read_text()
+    body = re.search(r"#define BLOCK8X8_DCT_MATRIX(.*?)\}", text, re.S)[1]
+    lits = re.findall(r"-?0x1\.[0-9a-f]+p-?\d+f", body)
+    got = np.array([float.fromhex(v[:-1]) for v in lits], np.float32)
+    assert got.shape == (64,)
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  ref.dct_matrix().reshape(-1).view(np.uint32))
