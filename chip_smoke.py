@@ -21,13 +21,16 @@ raises (exit code ≠ 0) on any failed check:
    and the sums; ``copy_ms``, a PyTorch copy of level 0's bytes:
    ``block_levels``);
    ``rgb2ycbcr`` and ``dct8x8_quant`` at the per-tile shapes (3, 256, 256)
-   and (256, 256) (bit-exact), also timed at a level's shape; each timed
-   with CUDA events (median of 10; at the per-tile shapes per launch of
-   200 launches replayed from one CUDA graph, and per call of 200 calls
-   from the host) beside its plain version, ``bound_ms``
-   (the least time the card could take: the larger of bytes over the
-   memory rate and operations over the float32 rate) and, where one
-   PyTorch call computes the same function, that call's time;
+   and (256, 256), at a level's shape and on one 8×8 block (bit-exact;
+   ``dct8x8_quant`` on noise and on the slide's luma, ``slide_*``); each
+   timed with CUDA events (median of 10; at the per-tile shapes per
+   launch of 200 launches replayed from one CUDA graph, ``floor_ms`` so on
+   the 8×8 block, and per call of 200 calls from the host) beside its
+   plain version, ``bound_ms`` (the least time the card could take: the
+   larger of bytes over the memory rate and operations over the float32
+   rate) and, where one PyTorch call computes the same function, that
+   call's time; ``call_breakdown_us``: the host time of each piece of a
+   per-tile wrapper call;
 4. equivalence on a 4096² slide — PSV vs TIFF, pipelined vs sync and
    per-tile (``batched=False``, its launch counts zeroed just before) study
    tars on the card, and the card's tar vs the CPU plain path's, byte for
@@ -97,7 +100,8 @@ raises (exit code ≠ 0) on any failed check:
    prefill and one decode step are then profiled (``torch.profiler``):
    kernel time beside the host wall time, the device's busy share, and
    the prefill's ``wkv_ms`` / ``wkv_share``: the summed device time of the
-   kernels ``wkv_chunk`` launches (three a layer) and its share.
+   kernels ``wkv_chunk`` launches (three a layer) and its share; all 96
+   must be in the trace. ``lead_ms``: the first kernel's start in it.
 
 Prints the kernel JSON line and the card line before the last line, which
 is ``{"ok": true, "device": {...}}``.
@@ -132,6 +136,13 @@ KERNELS = ("downsample2x2", "jpeg_transform", "jpeg_inverse", "rgb2ycbcr",
 WKV_BOUND = 5e-4
 # what the names of the kernels that one wkv_chunk call launches contain
 WKV_KERNEL_MATCH = "wkv_pass"
+# idle time at each end of a profiled window: the profiler drops a kernel
+# whose device timestamp, mapped to the host clock, falls outside the
+# window, and on an H100 that mapping has read a few ms early, so the
+# first kernels of a profiled 2048-token prefill were at times lost
+# (a profile's ``lead_ms`` reads the pad and the host's time to its first
+# launch, less that error)
+PROFILE_PAD_S = 0.05
 # serving: prompt lengths (their plain prefill stays small: a length that
 # is not a multiple of 64 makes the plain wkv build an (S, S, H, K) tensor,
 # 100 MB at S = 100), new tokens, slots, max_len
@@ -431,95 +442,244 @@ def check_kernels(size: int, slide: bytes, seed: int) -> dict:
     torch.cuda.empty_cache()
     for name, levels in block_levels(tiles).items():
         results[name].update(levels)
+    torch.cuda.empty_cache()
+    results.update(_check_per_tile_kernels(size, gen, tiles))
     del tiles
     torch.cuda.empty_cache()
-    results.update(_check_per_tile_kernels(size, gen))
     return results
 
 
-def _check_per_tile_kernels(size: int, gen) -> dict:
-    """rgb2ycbcr and dct8x8_quant at the per-tile path's shapes (one
-    256² tile; one of its planes), bit-exact; also timed on a level.
+def _level_image(tiles, cols: int):
+    """The (3, rows·T, cols·T) image of a row-major (rows·cols, 3, T, T)
+    tile batch."""
+    n, _, t, _ = tiles.shape
+    return tiles.view(n // cols, cols, 3, t, t).permute(2, 0, 3, 1, 4) \
+        .reshape(3, n // cols * t, cols * t)
 
-    At the tile's shape ``ms`` and ``library_ms`` are per call replayed
-    from a CUDA graph (``_graph_ms``: device time), while ``call_ms`` (the
-    kernel's wrapper) and ``plain_ms`` (whose quantization table upload a
-    graph cannot hold) are per call of a loop from the host
-    (``_per_call_ms``); at the level's shape all are single calls
-    (``_time_ms``). ``rgb2ycbcr``'s library call is
-    one ``torch.addmm``: the 3×3 colour matrix times the (3, H·W) pixels
-    plus the level-shift bias, a yardstick the port never calls (it must
-    agree with the plain version within 1e-3; it rounds differently)."""
+
+def _per_tile_inputs(pixels) -> dict:
+    """Each per-tile kernel's inputs cut from a (3, S, S) image: at the
+    tile's shape (256², from the image's centre), at the level's (the whole
+    image) and at one 8×8 block (``point``, the launch floor).
+    ``dct8x8_quant`` takes the image's level-shifted luma plane."""
+    from repro_torch.kernels import ref
+    c = pixels.shape[1] // 2 // 256 * 256
+    luma = ref.rgb2ycbcr_ref(pixels)[0].clone()  # frees Cb and Cr
+    return {"rgb2ycbcr": dict(tile=pixels[:, c:c + 256, c:c + 256],
+                              level=pixels, point=pixels[:, c:c + 8, c:c + 8]),
+            "dct8x8_quant": dict(tile=luma[c:c + 256, c:c + 256],
+                                 level=luma, point=luma[c:c + 8, c:c + 8])}
+
+
+def _copy_ms(x) -> float:
+    """One PyTorch copy of ``x``'s bytes into a tensor like it: what the
+    card's memory delivers to a plain streaming kernel."""
+    dst = x.new_empty(x.shape)
+    return _time_ms(lambda: dst.copy_(x))
+
+
+def _per_tile_times(fn, x: dict) -> dict:
+    """``ms``: device time per launch at the tile's shape, 200 launches
+    replayed from one CUDA graph; ``call_ms``: per call of 200 back-to-back
+    calls from the host; ``floor_ms``: as ``ms``, on one 8×8 block, what
+    any launch of the kernel costs; ``level_ms``: one call at the level's
+    shape (CUDA events, median of 10)."""
+    tile, level, point = (x[k].contiguous() for k in ("tile", "level",
+                                                       "point"))
+    return dict(ms=_graph_ms(lambda: fn(tile)),
+                call_ms=_per_call_ms(lambda: fn(tile)),
+                floor_ms=_graph_ms(lambda: fn(point)),
+                level_ms=_time_ms(lambda: fn(level)))
+
+
+def call_breakdown_us(calls: int = 200) -> dict:
+    """Host time of the pieces of one per-tile wrapper call at the tile's
+    shape, each timed alone: ``time.perf_counter_ns`` around one call,
+    median of ``calls`` after 10 warm-up calls, in µs.
+
+    Pieces: ``checks`` (``ops._launches_kernel``), ``pointers`` (the
+    tensors' ``data_ptr()``), ``empty_like`` (the output's allocation),
+    ``current_device`` and ``raw_stream`` (``ops._launch``'s
+    ``torch._C._cuda_getDevice`` and ``_cuda_getCurrentRawStream``), for
+    ``dct8x8_quant`` ``table`` (``ops._host_table`` and the table's
+    ``.ctypes`` address); ``call`` is the whole wrapper and ``rest`` the
+    call less the pieces: the ctypes call and ``cudaLaunchKernel``."""
     import torch
     from repro_torch.kernels import ops, ref
 
+    dev = torch.device("cuda")
+    idx = torch.cuda.current_device()
+    img = torch.zeros((3, 256, 256), device=dev)
+    plane = torch.zeros((256, 256), device=dev)
+    q = ref.JPEG_CHROMA_Q
+
+    def us(fn) -> float:
+        for _ in range(10):
+            fn()
+        ts = []
+        for _ in range(calls):
+            t0 = time.perf_counter_ns()
+            fn()
+            ts.append(time.perf_counter_ns() - t0)
+        torch.cuda.synchronize()
+        return statistics.median(ts) / 1e3
+
+    shared = dict(
+        current_device=us(torch._C._cuda_getDevice),
+        raw_stream=us(lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        pointers=us(lambda: (img.data_ptr(), plane.data_ptr())))
+    out = {}
+    for name, x, args, dtype in (
+            ("rgb2ycbcr", img, (), torch.float32),
+            ("dct8x8_quant", plane, (q,), torch.int32)):
+        fn = getattr(ops, name)
+        row = dict(
+            shared,
+            checks=us(lambda: ops._launches_kernel(x, name, x.dim(), "auto")),
+            empty_like=us(lambda: torch.empty_like(x, dtype=dtype)))
+        if name == "dct8x8_quant":
+            row["table"] = us(lambda: ops._host_table(q).ctypes.data)
+        pieces = sum(row.values())
+        row["call"] = us(lambda: fn(x, *args))
+        row["rest"] = row["call"] - pieces
+        out[name] = row
+    return out
+
+
+def per_tile_ab(seed: int, size: int = 16384) -> dict:
+    """``rgb2ycbcr`` and ``dct8x8_quant`` timed as :func:`_per_tile_times`
+    does (``ms``, ``call_ms``, ``floor_ms``, ``level_ms`` at (3, size,
+    size) and (size, size)) on uniform u8 noise (made on the card from
+    ``seed``) and, for ``dct8x8_quant``, on slide content too (the 256
+    tiles of a 4096² SyntheticScanner slide from ``seed``, repeated to a
+    size² level: its flat blocks give many sums of exactly 0). Like
+    :func:`block_levels_ab`, it times
+    whichever ``repro_torch`` is first on ``sys.path``: to compare two
+    trees on one card, call it in one process per tree with that tree's
+    ``src`` first (parent, this, this, parent; PERF.md's A/B)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.wsi import SyntheticScanner
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = _per_tile_inputs(torch.randint(
+        0, 256, (3, size, size), generator=gen, device="cuda",
+        dtype=torch.int32).to(torch.float32))
+    out = {"rgb2ycbcr": _per_tile_times(ops.rgb2ycbcr, noise["rgb2ycbcr"]),
+           "dct8x8_quant": {"noise": _per_tile_times(
+               ops.dct8x8_quant, noise["dct8x8_quant"])}}
+    out["rgb2ycbcr"]["level_copy_ms"] = _copy_ms(noise["rgb2ycbcr"]["level"])
+    del noise
+    torch.cuda.empty_cache()
+    scan = _tile_tensor(SyntheticScanner(seed=seed).scan(4096, 4096, 256),
+                        torch.device("cuda"))
+    cols = size // 256
+    slide = _per_tile_inputs(_level_image(
+        scan.repeat(-(-cols * cols // scan.shape[0]), 1, 1, 1)[:cols * cols],
+        cols))
+    out["dct8x8_quant"]["slide"] = _per_tile_times(
+        ops.dct8x8_quant, slide["dct8x8_quant"])
+    del slide, scan
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_per_tile_kernels(size: int, gen, tiles) -> dict:
+    """rgb2ycbcr and dct8x8_quant at the per-tile path's shapes (one 256²
+    tile; its luma plane), at a level's (3, size, size) and (size, size)
+    and on one 8×8 block, bit-exact: ``rgb2ycbcr`` on uniform u8 noise,
+    ``dct8x8_quant`` on the luma of that noise and of the slide's level 0
+    (``tiles``, its (N, 3, 256, 256) batch), whose flat blocks give sums of
+    exactly 0.
+
+    Times as :func:`_per_tile_times` (``dct8x8_quant``'s ``slide_*`` on
+    slide content); ``plain_ms`` per call of a loop from the host at the
+    tile (its quantization table upload a graph cannot hold) and one call
+    at the level, ``library_ms`` as ``ms`` and ``level_ms``.
+    ``rgb2ycbcr``'s library call is one ``torch.addmm``: the 3×3 colour
+    matrix times the (3, H·W) pixels plus the level-shift bias, a
+    yardstick the port never calls (it must agree with the plain version
+    within 1e-3; it rounds differently)."""
+    import torch
+    from repro_torch.kernels import ops
+
     dev = gen.device
-    results = {}
     mat = torch.tensor([[0.299, 0.587, 0.114],
                         [-0.168736, -0.331264, 0.5],
                         [0.5, -0.418688, -0.081312]], device=dev)
     bias = torch.tensor([[-128.0], [0.0], [0.0]], device=dev)
-
-    def library(name, x):
-        if name != "rgb2ycbcr":
-            return None  # no one PyTorch call is a blockwise DCT + quant
-        return lambda: torch.addmm(bias, mat, x.view(3, -1)).view(x.shape)
-
-    def pixels(shape):
-        return torch.randint(0, 256, shape, generator=gen, device=dev,
-                             dtype=torch.int32).to(torch.float32)
-
-    for name, per_tile, level, ops_per_elem, out_bytes in (
-            ("rgb2ycbcr", (3, 256, 256), (3, size, size), 16 / 3, 4),
-            ("dct8x8_quant", (256, 256), (size, size), 32.0, 4)):
+    inputs = {"noise": _per_tile_inputs(torch.randint(
+        0, 256, (3, size, size), generator=gen, device=dev,
+        dtype=torch.int32).to(torch.float32)),
+        "slide": _per_tile_inputs(_level_image(tiles, size // 256))}
+    del inputs["slide"]["rgb2ycbcr"]  # its arithmetic has no flat path
+    results = {}
+    for name, ops_per_elem in (("rgb2ycbcr", 16 / 3),
+                               ("dct8x8_quant", 32.0)):
         fn = getattr(ops, name)
-        mism, err, timed = 0, 0.0, {}
-        for key, shape in (("tile", per_tile), ("level", level)):
-            # dct8x8_quant takes a level-shifted luma plane
-            x = pixels(shape) if name == "rgb2ycbcr" else \
-                ref.rgb2ycbcr_ref(pixels((3, *shape)))[0].contiguous()
-            got, plain = fn(x), fn(x, impl="ref")
-            torch.cuda.synchronize()
-            m = int((got != plain).sum())
-            if m:
-                raise AssertionError(f"{name}: {m} values differ from the "
-                                     f"plain version at {shape}")
-            mism += m
-            err = max(err, float((got - plain).abs().max()))
-            lib = library(name, x)
-            if lib is not None and float((lib() - plain).abs().max()) > 1e-3:
-                raise AssertionError(f"{name}: the library yardstick "
-                                     "disagrees with the plain version")
-            bound = _bound(x.numel() * 4 + got.numel() * out_bytes,
-                           x.numel() * ops_per_elem)
-            tile = key == "tile"
-            timed[key] = dict(
-                ms=(_graph_ms if tile else _time_ms)(lambda: fn(x)),
-                call_ms=_per_call_ms(lambda: fn(x)) if tile else None,
-                plain_ms=(_per_call_ms if tile else _time_ms)(
-                    lambda: fn(x, impl="ref")),
-                library_ms=None if lib is None else (
-                    _graph_ms if tile else _time_ms)(lib),
-                bound=bound, shape=list(shape))
-            del x, got, plain, lib
-            torch.cuda.empty_cache()
-        t, lv = timed["tile"], timed["level"]
+        mism, err, row = 0, 0.0, {}
+        for kind, per_kernel in inputs.items():
+            if name not in per_kernel:
+                continue
+            x = {k: v.contiguous() for k, v in per_kernel[name].items()}
+            for key, xs in x.items():
+                got, plain = fn(xs), fn(xs, impl="ref")
+                torch.cuda.synchronize()
+                m = int((got != plain).sum())
+                if m:
+                    raise AssertionError(f"{name}: {m} values differ from the "
+                                         f"plain version on {kind} at "
+                                         f"{tuple(xs.shape)}")
+                mism += m
+                err = max(err, float((got - plain).abs().max()))
+                del got, plain
+            times = _per_tile_times(fn, x)
+            prefix = "" if kind == "noise" else f"{kind}_"
+            row.update({prefix + k: v for k, v in times.items()})
+            if kind != "noise":
+                continue
+            tile, level = x["tile"], x["level"]
+            row["plain_ms"] = _per_call_ms(lambda: fn(tile, impl="ref"))
+            row["level_plain_ms"] = _time_ms(lambda: fn(level, impl="ref"))
+            if name == "rgb2ycbcr":
+                row["level_copy_ms"] = _copy_ms(level)
+            for key, xs in (("", tile), ("level_", level)):
+                nbytes = xs.numel() * 8  # float32 in, 4-byte values out
+                row[key + "bound"] = _bound(nbytes, xs.numel() * ops_per_elem)
+                if name == "rgb2ycbcr":
+                    def lib(xs=xs):
+                        return torch.addmm(bias, mat, xs.view(3, -1)) \
+                            .view(xs.shape)
+                    if float((lib() - fn(xs, impl="ref")).abs().max()) > 1e-3:
+                        raise AssertionError("rgb2ycbcr: the library "
+                                             "yardstick disagrees with the "
+                                             "plain version")
+                    row[key + "library_ms"] = (
+                        _graph_ms if key == "" else _time_ms)(lib)
+                else:  # no one PyTorch call is a blockwise DCT + quant
+                    row[key + "library_ms"] = None
+            row["shape"], row["level_shape"] = list(tile.shape), \
+                list(level.shape)
+            del x, tile, level
+        (bound_ms, bound_by), level_bound = row.pop("bound"), \
+            row.pop("level_bound")
         results[name] = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces={"rgb2ycbcr": "src/repro/kernels/rgb2ycbcr.py:29",
                       "dct8x8_quant": "src/repro/kernels/dct8x8_quant.py:46"
                       }[name],
-            mismatches=mism, max_abs_err=err, ms=t["ms"],
-            plain_ms=t["plain_ms"], bound_ms=t["bound"][0],
-            bound_by=t["bound"][1], library_ms=t["library_ms"],
-            call_ms=t["call_ms"],
+            mismatches=mism, max_abs_err=err, bound_ms=bound_ms,
+            bound_by=bound_by, level_bound_ms=level_bound[0], **row,
             ms_measures="device time per launch, 200 launches replayed "
-                        "from one CUDA graph; call_ms and plain_ms: per "
-                        "call of 200 back-to-back calls from the host",
-            shape=t["shape"], level_shape=lv["shape"], level_ms=lv["ms"],
-            level_plain_ms=lv["plain_ms"], level_bound_ms=lv["bound"][0],
-            level_library_ms=lv["library_ms"])
+                        "from one CUDA graph (floor_ms: on one 8x8 block); "
+                        "call_ms and plain_ms: per call of 200 back-to-back "
+                        "calls from the host; level_*: one call")
+    del inputs
+    torch.cuda.empty_cache()
+    breakdown = call_breakdown_us()
+    for name, row in breakdown.items():
+        results[name]["call_breakdown_us"] = row
     return results
 
 
@@ -1020,7 +1180,8 @@ def check_wkv_chunk(seed: int) -> dict:
     # each of the call's kernels at the main shape, by the profiler
     a = _wkv_inputs(main, 2.0, gen)
     passes_ms = {}
-    for key, ms, calls in _device_kernels(lambda: ops.wkv_chunk(*a), 20):
+    rows, _ = _device_kernels(lambda: ops.wkv_chunk(*a), 20)
+    for key, ms, calls in rows:
         if WKV_KERNEL_MATCH in key:
             name = re.search(WKV_KERNEL_MATCH + r"\w*", key).group(0)
             passes_ms[name] = ms / 20
@@ -1144,10 +1305,12 @@ def _reordered_wkv(*a):
     return ref.wkv_chunked_ref(*a, chunk=32, sub=8)
 
 
-def _device_kernels(fn, calls: int = 1) -> list:
+def _device_kernels(fn, calls: int = 1) -> tuple:
     """``(name, device ms, launches)`` of every kernel that ``calls`` calls
     of ``fn`` launch (after one unprofiled call), by ``torch.profiler``,
-    longest first."""
+    longest first, and the start of the first of them in ms from the
+    trace's start. The calls start and end ``PROFILE_PAD_S`` inside the
+    trace's window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1155,22 +1318,27 @@ def _device_kernels(fn, calls: int = 1) -> list:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     rows = []  # the kernels themselves (an operator's entry repeats them)
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((e.key, e.self_device_time_total / 1e3, e.count))
-    return sorted(rows, key=lambda r: -r[1])
+    lead_ms = min(e.time_range.start for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return sorted(rows, key=lambda r: -r[1]), lead_ms
 
 
 def _profile(fn, wall_ms: float) -> dict:
     """Kernel time inside one call of ``fn`` (the sum of every kernel's
     device time), beside the call's unprofiled host wall time ``wall_ms``:
     their ratio is the device's busy share. ``wkv_ms`` sums the kernels
-    that ``wkv_chunk`` launches (``wkv_share`` of the device time)."""
-    rows = _device_kernels(fn)
+    that ``wkv_chunk`` launches (``wkv_share`` of the device time).
+    ``lead_ms`` is the first kernel's start in the trace."""
+    rows, lead_ms = _device_kernels(fn)
     device_ms = sum(r[1] for r in rows)
     wkv = [r for r in rows if WKV_KERNEL_MATCH in r[0]]
     wkv_ms = sum(r[1] for r in wkv)
@@ -1178,7 +1346,7 @@ def _profile(fn, wall_ms: float) -> dict:
                 busy_share=device_ms / wall_ms,
                 kernels=sum(r[2] for r in rows),
                 wkv_ms=wkv_ms, wkv_share=wkv_ms / device_ms,
-                wkv_kernels=sum(r[2] for r in wkv),
+                wkv_kernels=sum(r[2] for r in wkv), lead_ms=lead_ms,
                 top=[dict(name=n[:90], ms=ms, calls=c)
                      for n, ms, c in rows[:6]])
 
@@ -1400,8 +1568,11 @@ def main() -> int:
     kernels = check_kernels(args.size, slide, args.seed)
     for k in kernels.values():
         _log(f"kernel {k['name']}: {k['mismatches']} mismatches, "
-             f"{k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, bound "
-             f"{k['bound_ms']:.3f} by {k['bound_by']})")
+             f"{k['ms']:.5f} ms (plain {k['plain_ms']:.3f}, bound "
+             f"{k['bound_ms']:.5f} by {k['bound_by']})")
+    for name in ("rgb2ycbcr", "dct8x8_quant"):
+        _log(f"per-tile {name}: " + json.dumps(
+            {k: v for k, v in kernels[name].items() if "ms" in k}))
 
     # 4. equivalence at 4096², the per-tile path with its launch counts
     per_tile = check_equivalence(args.seed)

@@ -46,8 +46,7 @@ _ENTRIES = {
     "jpeg_inverse": ("jpeg_inverse_launch",
                      [_P, _P, _I64, _I64, _I64, _P, _P]),
     "rgb2ycbcr": ("rgb2ycbcr_launch", [_P, _P, _I64, _I64, _P]),
-    "dct8x8_quant": ("dct8x8_quant_launch",
-                     [_P, _P, _I64, _I64, _P, _P, _P]),
+    "dct8x8_quant": ("dct8x8_quant_launch", [_P, _P, _I64, _I64, _P, _P]),
     "entropy_decode": ("entropy_decode_launch",
                        [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                         _I64, _P, _P]),

@@ -66,9 +66,9 @@ __device__ __forceinline__ uint2 pack8(const float (&v)[8]) {
 template <int kTile>
 __global__ void __launch_bounds__(kThreads, 2)
 jpeg_inverse_kernel(const int* __restrict__ coef, uint8_t* __restrict__ out,
-                    Geometry g, Tables tables) {
-  __shared__ Buffer bufs[kWarps];
-  Buffer& buf = bufs[threadIdx.x / 32];
+                    Geometry g, Tables<3> tables) {
+  __shared__ Buffer<3> bufs[kWarps];
+  Buffer<3>& buf = bufs[threadIdx.x / 32];
   const int lane = threadIdx.x & 31;
   float q[3][8];  // this lane's column of each table: Q[ch][j][lane & 7]
 #pragma unroll
@@ -77,7 +77,7 @@ jpeg_inverse_kernel(const int* __restrict__ coef, uint8_t* __restrict__ out,
     for (int j = 0; j < 8; ++j) q[ch][j] = tables.Q[ch][j * 8 + (lane & 7)];
 
   const Dims<kTile> d(g);
-  walk<kTile, 1>(coef, g, [&](const Strip& s, const int (&x)[3][8]) {
+  walk<kTile, 1, 3>(coef, g, [&](const Strip& s, const int (&x)[3][8]) {
     float t[3][8];
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {  // pass 1, i = 0..7, X = coef * Q
@@ -128,7 +128,7 @@ jpeg_inverse_kernel(const int* __restrict__ coef, uint8_t* __restrict__ out,
 
 template <int kTile>
 cudaError_t launch(const int* coef, uint8_t* out, const Geometry& g,
-                   const Tables& tables, void* stream) {
+                   const Tables<3>& tables, void* stream) {
   unsigned grid;
   const cudaError_t err =
       persistent_grid<jpeg_inverse_kernel<kTile>>(g, &grid);
@@ -150,8 +150,8 @@ extern "C" int jpeg_inverse_launch(const int* coef, uint8_t* out, int64_t N,
                                    void* stream) {
   if (N == 0) return 0;
   Geometry g;
-  if (!make_geometry(out, N, H, W, &g)) return (int)cudaErrorInvalidValue;
-  const Tables tables = make_tables(q_host);
+  if (!make_geometry<3>(out, N, H, W, &g)) return (int)cudaErrorInvalidValue;
+  const Tables<3> tables = make_tables<3>(q_host);
   return (int)(H == kPipelineTile && W == kPipelineTile
                    ? launch<kPipelineTile>(coef, out, g, tables, stream)
                    : launch<0>(coef, out, g, tables, stream));

@@ -55,9 +55,9 @@ using namespace block8x8;
 template <int kTile>
 __global__ void __launch_bounds__(kThreads, 2)
 jpeg_transform_kernel(const float* __restrict__ x, int* __restrict__ out,
-                      Geometry g, Tables tables) {
-  __shared__ Buffer bufs[kWarps];
-  Buffer& buf = bufs[threadIdx.x / 32];
+                      Geometry g, Tables<3> tables) {
+  __shared__ Buffer<3> bufs[kWarps];
+  Buffer<3>& buf = bufs[threadIdx.x / 32];
   const int lane = threadIdx.x & 31;
   float q[3][8];  // row lane & 7 of each table: Q[ch][lane & 7][l]
 #pragma unroll
@@ -66,7 +66,7 @@ jpeg_transform_kernel(const float* __restrict__ x, int* __restrict__ out,
     for (int l = 0; l < 8; ++l) q[ch][l] = tables.Q[ch][(lane & 7) * 8 + l];
 
   const Dims<kTile> d(g);
-  walk<kTile, 0>(x, g, [&](const Strip& s, const float (&px)[3][8]) {
+  walk<kTile, 0, 3>(x, g, [&](const Strip& s, const float (&px)[3][8]) {
     float t[3][8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -130,7 +130,7 @@ jpeg_transform_kernel(const float* __restrict__ x, int* __restrict__ out,
 
 template <int kTile>
 cudaError_t launch(const float* x, int* out, const Geometry& g,
-                   const Tables& tables, void* stream) {
+                   const Tables<3>& tables, void* stream) {
   unsigned grid;
   const cudaError_t err =
       persistent_grid<jpeg_transform_kernel<kTile>>(g, &grid);
@@ -153,8 +153,8 @@ extern "C" int jpeg_transform_launch(const float* x, int* out, int64_t N,
                                      const float* q_host, void* stream) {
   if (N == 0) return 0;
   Geometry g;
-  if (!make_geometry(out, N, H, W, &g)) return (int)cudaErrorInvalidValue;
-  const Tables tables = make_tables(q_host);
+  if (!make_geometry<3>(out, N, H, W, &g)) return (int)cudaErrorInvalidValue;
+  const Tables<3> tables = make_tables<3>(q_host);
   return (int)(H == kPipelineTile && W == kPipelineTile
                    ? launch<kPipelineTile>(x, out, g, tables, stream)
                    : launch<0>(x, out, g, tables, stream));

@@ -12,7 +12,11 @@
 //
 // Design: one thread per pixel, consecutive threads on consecutive columns,
 // so each warp reads and writes one 128-B span per channel; no shared
-// memory. The whole-level path fuses this into jpeg_transform.cu.
+// memory; any 4-byte offset and any H * W are taken. The whole-level path
+// fuses this into jpeg_transform.cu. On an H100 (PERF.md §6) 16-byte
+// float4 pieces were no faster at a 3 x 16384^2 level (this kernel is
+// within 3 % of a copy of its bytes there) and slower at a 256^2 tile, so
+// this kernel has no vector path.
 //
 // Exactness: the polynomial terms are written with __fmul_rn / __fadd_rn /
 // __fsub_rn in the order of the plain version (ref.py, ycbcr_polynomials,

@@ -70,12 +70,6 @@ def _frozen(a: np.ndarray) -> np.ndarray:
 # The kernels' by-value host operands, built once so that a call's host
 # work is its launch (the per-tile path calls these kernels per tile).
 @lru_cache(maxsize=None)
-def _host_dct() -> np.ndarray:
-    """The (8, 8) float32 DCT matrix ``dct8x8_quant`` takes by value."""
-    return _frozen(np.array(ref.dct_matrix(), np.float32))
-
-
-@lru_cache(maxsize=None)
 def _host_default_tables() -> np.ndarray:
     """The (3, 8, 8) Annex-K tables for Y, Cb and Cr."""
     return _frozen(ref.quant_tables(None, None, "cpu").numpy().copy())
@@ -92,11 +86,36 @@ def _host_tables(qluma, qchroma) -> np.ndarray:
     return ref.quant_tables(qluma, qchroma, "cpu").numpy()
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _host_table(qtable) -> np.ndarray:
+    """``dct8x8_quant``'s table as the (8, 8) float32 array the kernel
+    reads (64 floats, row-major): ``None`` is the Annex-K luma plane of
+    ``_host_default_tables``; a contiguous float32 table, such as the
+    ``ref`` tables the per-tile path passes, is used as it is; any other is
+    converted."""
+    if qtable is None:
+        return _host_default_tables()[0]
+    q = np.ascontiguousarray(qtable, np.float32)
+    if q.shape != (8, 8):
+        raise ValueError(f"dct8x8_quant: qtable must be (8, 8), got "
+                         f"{q.shape}")
+    return q
 
 
-def _raise_on_error(err: int, name: str) -> None:
+def _launch(name: str, t: torch.Tensor, *args) -> None:
+    """Call kernel ``name``'s C launcher with ``args`` and the current
+    stream of ``t``'s card; raise if the launch failed.
+
+    The launchers launch on the current device, so a tensor on another card
+    switches to it for the call; when it is current (the per-tile path's
+    case) the device guard's round trip is skipped, and the stream is read
+    as its raw handle, without building a ``torch.cuda.Stream``."""
+    dev = t.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if torch._C._cuda_getDevice() == dev:
+        err = library(name)(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = library(name)(*args, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -121,11 +140,8 @@ def jpeg_transform(tiles: torch.Tensor, qluma=None, qchroma=None,
     if N == 0:
         return out
     q = _host_tables(qluma, qchroma)
-    with torch.cuda.device(tiles.device):
-        err = library("jpeg_transform")(
-            tiles.data_ptr(), out.data_ptr(), N, H, W, q.ctypes.data,
-            _stream())
-    _raise_on_error(err, "jpeg_transform")
+    _launch("jpeg_transform", tiles, tiles.data_ptr(), out.data_ptr(), N, H,
+            W, q.ctypes.data)
     jpeg_transform.launches += 1
     return out
 
@@ -149,10 +165,7 @@ def downsample2x2(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
                       device=img.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(img.device):
-        err = library("downsample2x2")(
-            img.data_ptr(), out.data_ptr(), C, H, W, _stream())
-    _raise_on_error(err, "downsample2x2")
+    _launch("downsample2x2", img, img.data_ptr(), out.data_ptr(), C, H, W)
     downsample2x2.launches += 1
     return out
 
@@ -178,11 +191,8 @@ def jpeg_inverse(coef: torch.Tensor, qluma=None, qchroma=None,
     if N == 0:
         return out
     q = _host_tables(qluma, qchroma)
-    with torch.cuda.device(coef.device):
-        err = library("jpeg_inverse")(
-            coef.data_ptr(), out.data_ptr(), N, H, W, q.ctypes.data,
-            _stream())
-    _raise_on_error(err, "jpeg_inverse")
+    _launch("jpeg_inverse", coef, coef.data_ptr(), out.data_ptr(), N, H, W,
+            q.ctypes.data)
     jpeg_inverse.launches += 1
     return out
 
@@ -201,13 +211,10 @@ def rgb2ycbcr(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     if not _launches_kernel(img, "rgb2ycbcr", 3, impl):
         return ref.rgb2ycbcr_ref(img)
     _, H, W = img.shape
-    out = torch.empty(img.shape, dtype=torch.float32, device=img.device)
+    out = torch.empty_like(img)  # contiguous, as img is
     if out.numel() == 0:
         return out
-    with torch.cuda.device(img.device):
-        err = library("rgb2ycbcr")(img.data_ptr(), out.data_ptr(), H, W,
-                                   _stream())
-    _raise_on_error(err, "rgb2ycbcr")
+    _launch("rgb2ycbcr", img, img.data_ptr(), out.data_ptr(), H, W)
     rgb2ycbcr.launches += 1
     return out
 
@@ -226,20 +233,15 @@ def dct8x8_quant(plane: torch.Tensor, qtable=None,
     if plane.dim() != 2 or plane.shape[0] % 8 or plane.shape[1] % 8:
         raise ValueError("dct8x8_quant: expected an (H, W) plane with H, W "
                          f"multiples of 8, got {tuple(plane.shape)}")
+    q = _host_table(qtable)
     if not _launches_kernel(plane, "dct8x8_quant", 2, impl):
-        return ref.dct8x8_quant_ref(plane, qtable)
+        return ref.dct8x8_quant_ref(plane, q)
     H, W = plane.shape
-    out = torch.empty(plane.shape, dtype=torch.int32, device=plane.device)
+    out = torch.empty_like(plane, dtype=torch.int32)  # contiguous
     if out.numel() == 0:
         return out
-    C = _host_dct()
-    q = _host_default_tables()[0] if qtable is None else \
-        np.ascontiguousarray(qtable, np.float32)
-    with torch.cuda.device(plane.device):
-        err = library("dct8x8_quant")(
-            plane.data_ptr(), out.data_ptr(), H, W, C.ctypes.data,
-            q.ctypes.data, _stream())
-    _raise_on_error(err, "dct8x8_quant")
+    _launch("dct8x8_quant", plane, plane.data_ptr(), out.data_ptr(), H, W,
+            q.ctypes.data)
     dct8x8_quant.launches += 1
     return out
 
@@ -318,13 +320,11 @@ def entropy_decode(buf: torch.Tensor, offs: torch.Tensor,
     if stats is not None:
         stats.zero_()
     zz = _host_zigzag()
-    with torch.cuda.device(dev):
-        err = library("entropy_decode")(
-            buf.data_ptr(), buf.numel(), offs.data_ptr(), nbits.data_ptr(),
-            lut.data_ptr(), coef.data_ptr(), stop.data_ptr(),
-            err_kind.data_ptr(), 0 if stats is None else stats.data_ptr(),
-            N, H, W, zz.ctypes.data, _stream())
-    _raise_on_error(err, "entropy_decode")
+    _launch("entropy_decode", buf, buf.data_ptr(), buf.numel(),
+            offs.data_ptr(), nbits.data_ptr(), lut.data_ptr(),
+            coef.data_ptr(), stop.data_ptr(), err_kind.data_ptr(),
+            0 if stats is None else stats.data_ptr(), N, H, W,
+            zz.ctypes.data)
     entropy_decode.launches += 1
     return coef, stop, err_kind
 
@@ -439,12 +439,9 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"wkv_chunk: scratch must be contiguous float32 of "
                          f"at least {need} elements on {r.device}")
     _check_aligned(scratch, "wkv_chunk: scratch")
-    with torch.cuda.device(r.device):
-        err = library("wkv_chunk")(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-            u.data_ptr(), state.data_ptr(), out.data_ptr(), final.data_ptr(),
-            scratch.data_ptr(), B, S, H, K, _stream())
-    _raise_on_error(err, "wkv_chunk")
+    _launch("wkv_chunk", r, r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            logw.data_ptr(), u.data_ptr(), state.data_ptr(), out.data_ptr(),
+            final.data_ptr(), scratch.data_ptr(), B, S, H, K)
     wkv_chunk.launches += 1
     return out, final
 

@@ -190,7 +190,7 @@ def dct8x8_quant_ref(plane, qtable=None) -> torch.Tensor:
     """
     x = plane.to(torch.float32)
     C = torch.from_numpy(dct_matrix()).to(x.device)
-    q = torch.from_numpy(np.asarray(
+    q = torch.from_numpy(np.array(  # a writable copy of any table
         JPEG_LUMA_Q if qtable is None else qtable, np.float32)).to(x.device)
     return torch.round(_unblocks(_fixed_order_dct(_blocks(x), C) / q)).to(
         torch.int32)

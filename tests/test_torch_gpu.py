@@ -180,6 +180,80 @@ def test_per_tile_kernels_match_plain(cuda_device):
             assert torch.equal(got, ops.dct8x8_quant(plane, q, impl="ref"))
 
 
+def _assert_launches_once_and_equals_plain(fn, x, *args):
+    n0 = fn.launches
+    got = fn(x, *args)
+    assert fn.launches == n0 + 1
+    assert torch.equal(got, fn(x, *args, impl="ref")), tuple(x.shape)
+
+
+@pytest.mark.parametrize("h,w", [(256, 256), (8, 8), (8, 24), (8, 136),
+                                 (24, 40), (2048, 24), (1024, 1536)])
+def test_dct8x8_quant_kernel_matches_plain(cuda_device, h, w):
+    """The one-channel block8x8 walk on noise and on planes of flat blocks
+    (sums of exactly 0, which it does not divide), at the 256² instance
+    and generic shapes (W = 8, 24, 40, 136: a strip's last block row ends
+    before 32 columns; H = 8 and tall planes, where each persistent warp
+    walks many strips), with the luma, chroma and a custom table, and on a
+    view one element into its storage: bit-exact, one launch a call."""
+    rng = np.random.default_rng(17)
+    flat = np.repeat(np.repeat(rng.integers(-128, 128, size=(h // 8, w // 8)),
+                               8, axis=0), 8, axis=1)
+    tables = (None, P.JPEG_CHROMA_Q, _custom_tables(rng)[0])
+    for a in (rng.normal(0, 60, size=(h, w)), flat):
+        plane = torch.from_numpy(a.astype(np.float32)).to(cuda_device)
+        for q in tables:
+            _assert_launches_once_and_equals_plain(ops.dct8x8_quant, plane, q)
+        buf = torch.empty(1 + h * w, device=cuda_device)
+        view = buf[1:].view(h, w)
+        view.copy_(plane)
+        assert view.data_ptr() % 16 == 4
+        _assert_launches_once_and_equals_plain(ops.dct8x8_quant, view)
+
+
+def test_dct8x8_quant_kernel_on_colour_plane_views_equals_jpeg_transform(
+        cuda_device):
+    """Per tile, ``dct8x8_quant`` on the ``rgb2ycbcr`` output's views
+    ``ycc[0]``, ``ycc[1]``, ``ycc[2]`` equals the whole-level
+    ``jpeg_transform``'s channel on the same tile, bit for bit, with the
+    Annex-K and custom tables; slide tiles and noise."""
+    rng = np.random.default_rng(18)
+    tables = _custom_tables(rng)
+    for tiles in (_slide_tiles(9, 512),
+                  rng.integers(0, 256, size=(2, 3, 256, 256)),
+                  rng.integers(0, 256, size=(2, 3, 24, 136))):
+        t = torch.from_numpy(tiles.astype(np.float32)).to(cuda_device)
+        for ql, qc in ((None, None), tables):
+            batched = ops.jpeg_transform(t, ql, qc)
+            qs = (P.JPEG_LUMA_Q if ql is None else ql,
+                  P.JPEG_CHROMA_Q if qc is None else qc)
+            for i in range(t.shape[0]):
+                ycc = ops.rgb2ycbcr(t[i])
+                for c in range(3):
+                    _assert_launches_once_and_equals_plain(
+                        ops.dct8x8_quant, ycc[c], qs[min(c, 1)])
+                    assert torch.equal(ops.dct8x8_quant(ycc[c], qs[min(c, 1)]),
+                                       batched[i, c]), (tiles.shape, c)
+
+
+@pytest.mark.parametrize("h,w", [(256, 256), (24, 136), (5, 7), (3, 3),
+                                 (2, 5), (1, 1), (4096, 4096), (1001, 999)])
+def test_rgb2ycbcr_kernel_matches_plain(cuda_device, h, w):
+    """Any H·W (H·W % 4 of 0, 1, 2 and 3; the tile and large planes) and
+    views 1, 2, 3 and 4 elements into their storage: bit-exact, one launch
+    a call."""
+    rng = np.random.default_rng(19)
+    img = torch.from_numpy(rng.integers(0, 256, size=(3, h, w))
+                           .astype(np.float32)).to(cuda_device)
+    _assert_launches_once_and_equals_plain(ops.rgb2ycbcr, img)
+    buf = torch.empty(4 + img.numel(), device=cuda_device)
+    for off in (1, 2, 3, 4):
+        view = buf[off:off + img.numel()].view(3, h, w)
+        view.copy_(img)
+        assert view.data_ptr() % 16 == (4 * off) % 16
+        _assert_launches_once_and_equals_plain(ops.rgb2ycbcr, view)
+
+
 def _entropy_args(scans, H, W, device):
     return (*(torch.from_numpy(a).to(device) for a in pack_scans(scans)),
             _device_lut(device), H, W)

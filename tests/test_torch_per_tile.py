@@ -78,18 +78,24 @@ def test_dct8x8_quant_plain_matches_jax(h, w, table):
     plane = np.random.default_rng(42).normal(0, 40, size=(h, w)) \
         .astype(np.float32)
     got = ops.dct8x8_quant(torch.from_numpy(plane), q).numpy()
-    x = torch.from_numpy(plane)
-    quotient = ref._unblocks(ref._fixed_order_dct(
-        ref._blocks(x), torch.from_numpy(ref.dct_matrix()))
-        / torch.from_numpy(q)).numpy()
     for impl in ("ref", "pallas"):
-        expect = np.asarray(jax_dct8x8_quant(jnp.asarray(plane),
-                                             jnp.asarray(q), impl=impl))
-        bad = expect != got
-        assert np.all(np.abs(expect[bad].astype(np.int64) - got[bad]) == 1)
-        v = quotient[bad]
-        assert np.all(np.abs(np.abs(v - np.trunc(v)) - 0.5) < TIE), v
-        assert bad.sum() <= max(1, MAX_MISMATCH_FRACTION * bad.size)
+        _assert_within_tie_rule(got, plane, q, impl)
+
+
+def _assert_within_tie_rule(got, plane, q, impl):
+    """``got`` vs repro's ``dct8x8_quant``: every mismatch ±1 at a
+    rounding tie, at most 1e-6 of the coefficients (module doc)."""
+    quotient = ref._unblocks(ref._fixed_order_dct(
+        ref._blocks(torch.from_numpy(plane)),
+        torch.from_numpy(ref.dct_matrix())) / torch.from_numpy(
+            np.asarray(q, np.float32))).numpy()
+    expect = np.asarray(jax_dct8x8_quant(jnp.asarray(plane), jnp.asarray(q),
+                                         impl=impl))
+    bad = expect != got
+    assert np.all(np.abs(expect[bad].astype(np.int64) - got[bad]) == 1)
+    v = quotient[bad]
+    assert np.all(np.abs(np.abs(v - np.trunc(v)) - 0.5) < TIE), v
+    assert bad.sum() <= max(1, MAX_MISMATCH_FRACTION * bad.size)
 
 
 def test_per_tile_transform_equals_whole_level_and_jax_on_slide():
@@ -119,6 +125,105 @@ def test_per_tile_kernel_contract():
         ops.dct8x8_quant(torch.zeros((8, 12)))
     with pytest.raises(ValueError, match="contiguous"):
         ops.dct8x8_quant(torch.zeros((16, 16))[::2])
+
+
+@pytest.mark.parametrize("h,w", [(3, 3), (2, 5), (5, 7), (24, 136)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rgb2ycbcr_plain_takes_any_contiguous_shape_and_offset(h, w, offset):
+    """Every input the kernel takes (H·W % 4 of 1, 2, 3 and 0, a view one
+    element into its storage) runs the plain version on the CPU, within
+    the stated tolerance of repro's."""
+    img = np.random.default_rng(43).integers(0, 256, size=(3, h, w)) \
+        .astype(np.float32)
+    buf = torch.zeros(offset + img.size)
+    x = buf[offset:].view(3, h, w)
+    x.copy_(torch.from_numpy(img))
+    n0 = ops.rgb2ycbcr.launches
+    got = ops.rgb2ycbcr(x)
+    assert ops.rgb2ycbcr.launches == n0
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_rgb2ycbcr(jnp.asarray(img), impl="ref")),
+        rtol=0, atol=2.0 ** -15)
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (8, 24), (8, 136), (1032, 24)])
+def test_dct8x8_quant_plain_matches_jax_on_narrow_planes(h, w):
+    """The kernel's edge shapes (W = 8, 24, 136: strips whose last block
+    row ends before 32 columns; H = 8 and a tall plane), flat blocks
+    beside noise: repro's coefficients, within the stated tie rule."""
+    rng = np.random.default_rng(44)
+    plane = rng.normal(0, 40, size=(h, w)).astype(np.float32)
+    plane[:, :8] = 17.0  # flat blocks: sums of exactly 0 but the DC
+    got = ops.dct8x8_quant(torch.from_numpy(plane), ref.JPEG_CHROMA_Q)
+    assert (got.numpy()[:, :8].reshape(-1, 8, 8)[:, 1:, 1:] == 0).all()
+    _assert_within_tie_rule(got.numpy(), plane, ref.JPEG_CHROMA_Q, "ref")
+
+
+@pytest.mark.parametrize("table", ["luma", "chroma", "custom", "list"])
+def test_dct8x8_quant_table_cache(table):
+    """The table the kernel reads: a contiguous float32 (8, 8) array equal
+    to ``np.asarray(q, np.float32)``; a float32 table (the ``ref`` tables
+    the per-tile path passes) is taken as it is, with no copy a call, and
+    ``None`` is the cached, read-only Annex-K luma plane."""
+    q = {"luma": ref.JPEG_LUMA_Q, "chroma": ref.JPEG_CHROMA_Q,
+         "custom": np.arange(1, 65, dtype=np.float32).reshape(8, 8),
+         "list": [[int(v) for v in row] for row in ref.JPEG_CHROMA_Q]}[table]
+    got = ops._host_table(q)
+    assert got.dtype == np.float32 and got.shape == (8, 8)
+    assert got.flags.c_contiguous
+    np.testing.assert_array_equal(got, np.asarray(q, np.float32))
+    if table != "list":
+        assert got is q
+    default = ops._host_table(None)
+    np.testing.assert_array_equal(default, ref.JPEG_LUMA_Q)
+    assert default.dtype == np.float32 and default.flags.c_contiguous
+    assert not default.flags.writeable
+    with pytest.raises(ValueError, match="read-only"):
+        default[0, 0] = 1.0
+    assert np.shares_memory(default, ops._host_table(None))
+
+
+def test_dct8x8_quant_plain_path_takes_the_cached_table(monkeypatch):
+    seen, original = [], ref.dct8x8_quant_ref
+
+    def plain(plane, qtable=None):
+        seen.append(qtable)
+        return original(plane, qtable)
+
+    monkeypatch.setattr(ref, "dct8x8_quant_ref", plain)
+    plane = torch.from_numpy(np.random.default_rng(45).normal(
+        0, 40, size=(16, 24)).astype(np.float32))
+    for q in (None, ref.JPEG_CHROMA_Q):
+        got = ops.dct8x8_quant(plane, q)
+        assert np.shares_memory(seen[-1], ops._host_table(q))
+        assert torch.equal(got, original(plane, q))
+
+
+@pytest.mark.parametrize("shape", [(64,), (8,), (8, 8, 1), (4, 16)])
+def test_dct8x8_quant_rejects_tables_not_8x8(shape):
+    """The kernel reads 64 floats from the table, row-major: any other
+    shape is refused on every device (on the card an 8-entry table would
+    be read past its end)."""
+    with pytest.raises(ValueError, match=r"qtable must be \(8, 8\)"):
+        ops.dct8x8_quant(torch.zeros((8, 8)), np.ones(shape, np.float32))
+
+
+@pytest.mark.parametrize("name", sorted(
+    __import__("repro_torch.kernels._build", fromlist=["_ENTRIES"])
+    ._ENTRIES))
+def test_launcher_signatures_match_their_ctypes_entries(name):
+    """Each ``csrc/<name>.cu`` exports the C entry point that
+    ``_build._ENTRIES`` binds, with as many parameters as it passes
+    (``dct8x8_quant_launch`` takes no DCT matrix: it is compiled in)."""
+    import re
+    from repro_torch.kernels import _build
+    symbol, argtypes = _build._ENTRIES[name]
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    params = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", text,
+                       re.S)[1]
+    assert len(params.split(",")) == len(argtypes)
+    if name == "dct8x8_quant":
+        assert "c_host" not in params and len(argtypes) == 6
 
 
 # --------------------------------------------------------------------------
