@@ -101,7 +101,29 @@ raises (exit code ≠ 0) on any failed check:
    kernel time beside the host wall time, the device's busy share, and
    the prefill's ``wkv_ms`` / ``wkv_share``: the summed device time of the
    kernels ``wkv_chunk`` launches (three a layer) and its share; all 96
-   must be in the trace. ``lead_ms``: the first kernel's start in it.
+   must be in the trace. ``lead_ms``: the first kernel's start in it;
+10. the event-driven pipeline on the card — four 8192² slides (256²
+    tiles; two PSV, two TIFF; UIDs pinned from each slide id) ingested
+    into the landing bucket of a ``ConversionPipeline`` on a
+    ``RealScheduler`` (8 workers), with the port's lockdep and racedep
+    armed: landing bucket → ``OBJECT_FINALIZE`` → topic → push
+    subscription → ``ConverterFleet`` → ``convert_wsi_to_dicom`` on
+    ``cuda`` in worker threads → study tar → ingest subscription → the
+    2-shard DICOM store → validation and ML-inference subscribers (frames
+    decoded on the card). Run A is serial (one instance, concurrency 1);
+    run B the same with two instances of concurrency 2 (up to four
+    conversions in flight on the card), then an ``export-request`` of one
+    study. With the launch counts zeroed before each run: ``jpeg_transform``
+    once per level, ``downsample2x2`` once per level step, ``entropy_decode``
+    and ``jpeg_inverse`` launched by inference and export. Gates: 4/4
+    converted and nothing dead-lettered in each run, run B's tars equal to
+    run A's and slide 0's to a direct conversion, levels × slides instances
+    stored, zero detector violations, one span tree per slide holding
+    ``pipeline.convert`` → ``convert.slide`` → ``convert.entropy``, the
+    exported level-0 TIFF equal to ``decode_frames`` of the stored frames.
+    Prints each run's batch wall time and level-0 MPix/s, the summed
+    ``pipeline.convert`` span time, the ``convert.*`` spans' shares, peak
+    device memory, inference frames and export MPix/s.
 
 Prints the kernel JSON line and the card line before the last line, which
 is ``{"ok": true, "device": {...}}``.
@@ -1517,6 +1539,228 @@ def run_serving(seed: int) -> dict:
         witness_spread=spread, logit_rel_bound=bounds, compare=rows)
 
 
+# phase 10: slides through the event-driven pipeline
+SPINE_SIZE = 8192
+SPINE_SLIDES = 4
+SPINE_TIMEOUT_S = 600.0
+
+
+def _pinned_uids(slide_id: str) -> str:
+    """The manifest ``"uids"`` entry minted from a slide id."""
+    import hashlib
+    h = hashlib.sha256(slide_id.encode()).hexdigest()
+    return json.dumps(["2.25." + str(int(h[:24], 16)),
+                       "2.25." + str(int(h[24:48], 16))])
+
+
+def _wait_for(cond, what: str, timeout: float = SPINE_TIMEOUT_S) -> None:
+    """Poll ``cond()`` until it holds; raise after ``timeout`` seconds."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"phase 10: {what} not done after {timeout}s")
+        time.sleep(0.02)
+
+
+def _span_trees(tracer, n_slides: int) -> dict:
+    """One trace per slide holding pipeline.convert → convert.slide →
+    convert.entropy, each with one root; returns the convert.* span sums."""
+    from repro_torch.core.dashboard import trace_problems
+    sums = {}
+    trees = 0
+    for tid, spans in tracer.traces().items():
+        by_name = {}
+        for sp in spans:
+            by_name.setdefault(sp.name, []).append(sp)
+        if "pipeline.convert" not in by_name:
+            continue
+        problems = trace_problems([sp.to_dict() for sp in spans])
+        if problems:
+            raise AssertionError(f"phase 10: trace {tid}: {problems}")
+        (pc,) = by_name["pipeline.convert"]
+        (cs,) = by_name["convert.slide"]
+        ents = by_name.get("convert.entropy", [])
+        if cs.parent_id != pc.span_id or not ents or any(
+                e.parent_id != cs.span_id for e in ents):
+            raise AssertionError(f"phase 10: trace {tid} lacks "
+                                 "pipeline.convert → convert.slide → "
+                                 "convert.entropy")
+        trees += 1
+        for sp in spans:
+            if sp.name.startswith(("convert.", "pipeline.")):
+                sums[sp.name] = sums.get(sp.name, 0.0) + sp.duration()
+    if trees != n_slides:
+        raise AssertionError(f"phase 10: {trees} conversion traces for "
+                             f"{n_slides} slides")
+    return sums
+
+
+def _spine_run(slides: dict, convert, *, max_instances: int,
+               concurrency: int, export: bool) -> dict:
+    """One pipeline run over ``slides`` with the detectors armed: the batch,
+    the store/validation/inference fan-out, and optionally one export."""
+    import torch
+    from repro_torch.analysis import lockdep, racedep
+    from repro_torch.core import ConversionPipeline, RealScheduler, tracing
+    meta = {k: {"slide_id": k} for k in slides}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lockdep.arm(max_hold=30.0)
+    racedep.arm()
+    sched = RealScheduler(workers=8)
+    try:
+        with tracing.capture(now=sched.now) as tracer:
+            pipe = ConversionPipeline(
+                sched, convert=convert, max_instances=max_instances,
+                concurrency=concurrency, fleet={}, store_shards=2,
+                subscribers=True, cold_start=0.0, device="cuda")
+            _zero_launches()
+            t0 = time.perf_counter()
+            tars = pipe.run_batch(slides, meta, timeout=SPINE_TIMEOUT_S)
+            batch_s = time.perf_counter() - t0
+            conv_launches = _read_launches()
+            n_inst = sum(
+                json.loads(_study_json(tar))["levels"] for tar in tars.values())
+            store = pipe.store_service
+            _wait_for(lambda: len(pipe.validator.checked) >= n_inst
+                      and len(pipe.ml_subscriber.predictions) >= n_inst,
+                      "store fan-out")
+            export_s, export_mpix, tiff_check = None, None, None
+            if export:
+                study = store.search_studies()[0]
+                t0 = time.perf_counter()
+                pipe.request_export(study)
+                _wait_for(lambda: pipe.export_service.exported, "export")
+                export_s = time.perf_counter() - t0
+                metas = store.search_instances(study)
+                export_mpix = sum(m["total_rows"] * m["total_cols"]
+                                  for m in metas) / 1e6
+                tiff_check = _export_level0_matches(
+                    pipe, study,
+                    next(m for m in metas if m["instance_number"] == 1))
+            launches = _read_launches()
+            stored = sum(len(store.search_instances(u))
+                         for u in store.search_studies())
+            frames = pipe.metrics.get("inference.frames")
+            dead = list(pipe.dead_lettered)
+    finally:
+        sched.shutdown()
+        lock_v = lockdep.disarm()
+        race_v = racedep.disarm()
+    if lock_v or race_v:
+        raise AssertionError(
+            "phase 10: detector violations: "
+            + "; ".join(str(v) for v in lock_v)
+            + "; ".join(f"{v.message} ({v.first_site} / {v.second_site})"
+                        for v in race_v))
+    if dead or sorted(tars) != sorted(slides):
+        raise AssertionError(f"phase 10: {len(tars)}/{len(slides)} "
+                             f"converted, dead-lettered {dead}")
+    if stored != n_inst:
+        raise AssertionError(f"phase 10: the store holds {stored} "
+                             f"instances, expected {n_inst}")
+    sums = _span_trees(tracer, len(slides))
+    slide_s = sums["convert.slide"]
+    mpix = len(slides) * SPINE_SIZE * SPINE_SIZE / 1e6
+    return dict(
+        tars=tars, instances=n_inst, conv_launches=conv_launches,
+        launches=launches, batch_s=batch_s, mpix_per_s=mpix / batch_s,
+        convert_span_s=sums["pipeline.convert"],
+        span_share={k: v / slide_s for k, v in sorted(sums.items())
+                    if k.startswith("convert.") and k != "convert.slide"},
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        inference_frames=frames, export_s=export_s,
+        export_mpix_per_s=(export_mpix / export_s if export else None),
+        export_tiff_check=tiff_check)
+
+
+def _study_json(tar: bytes) -> bytes:
+    from repro_torch.wsi import study_levels
+    return study_levels(tar)["study.json"]
+
+
+def _export_level0_matches(pipe, study: str, meta0: dict) -> str:
+    """The exported level-0 TIFF, read back with open_slide, equals
+    decode_frames of the stored frames, pixel for pixel."""
+    import numpy as np
+    from repro_torch.wsi import decode_frames, open_slide
+    store = pipe.store_service
+    sop = meta0["sop_instance_uid"]
+    n = store.frame_index(sop).n_frames
+    tile = meta0["rows"]
+    want = decode_frames([store.retrieve_frame(sop, i) for i in range(n)],
+                         transfer_syntax=meta0["transfer_syntax"],
+                         rows=tile, cols=tile, device="cuda")
+    rd = open_slide(pipe.derived.get(f"{study}/level_0.tiff").data)
+    bh, bw = rd.grid
+    got = np.stack([rd.read_tile(r, c) for r in range(bh)
+                    for c in range(bw)])
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("phase 10: the exported level-0 TIFF differs "
+                             "from decode_frames of the stored frames")
+    return f"{n} tiles equal"
+
+
+def run_spine(seed: int, card: str) -> dict:
+    """Phase 10: four 8192² slides through the event-driven pipeline on
+    the card, serial (run A) and concurrent (run B)."""
+    from repro_torch.wsi import (ConvertOptions, SyntheticScanner,
+                                 convert_wsi_to_dicom)
+    from repro_torch.wsi.convert import _pyramid_dims
+    t0 = time.perf_counter()
+    slides = {}
+    for i in range(SPINE_SLIDES):
+        sc = SyntheticScanner(seed=seed + 10 + i)
+        if i % 2 == 0:
+            slides[f"spine/s{i}.psv"] = sc.scan(SPINE_SIZE, SPINE_SIZE, 256)
+        else:
+            slides[f"spine/s{i}.svs"] = sc.scan_tiff(SPINE_SIZE, SPINE_SIZE,
+                                                     256)
+    scan_s = time.perf_counter() - t0
+
+    def convert(data: bytes, meta: dict) -> bytes:
+        opt = ConvertOptions(manifest={"uids": _pinned_uids(meta["slide_id"])},
+                             device="cuda")
+        return convert_wsi_to_dicom(data, meta, opt)
+
+    n_levels = len(_pyramid_dims(SPINE_SIZE, SPINE_SIZE, 256))
+    want = {k: 0 for k in KERNELS}
+    want.update(jpeg_transform=SPINE_SLIDES * n_levels,
+                downsample2x2=SPINE_SLIDES * (n_levels - 1))
+    runs = {}
+    for name, inst, conc, export in (("A", 1, 1, False), ("B", 2, 2, True)):
+        r = _spine_run(slides, convert, max_instances=inst,
+                       concurrency=conc, export=export)
+        got = {k: r["launches"][k] for k in ("jpeg_transform",
+                                             "downsample2x2")}
+        if got != {k: want[k] for k in got} or \
+                r["conv_launches"]["jpeg_transform"] != want["jpeg_transform"]:
+            raise AssertionError(f"phase 10 run {name}: conversion launches "
+                                 f"{r['launches']}, expected {want}")
+        if not (r["launches"]["entropy_decode"] > 0
+                and r["launches"]["jpeg_inverse"] > 0):
+            raise AssertionError(f"phase 10 run {name}: the read side "
+                                 f"launched {r['launches']}")
+        if r["instances"] != SPINE_SLIDES * n_levels:
+            raise AssertionError(f"phase 10 run {name}: {r['instances']} "
+                                 "instances")
+        runs[name] = r
+        _log(f"spine run {name} ({card}): " + json.dumps(
+            {k: v for k, v in r.items() if k != "tars"}))
+    for k in slides:
+        if runs["B"]["tars"][k] != runs["A"]["tars"][k]:
+            raise AssertionError(f"phase 10: run B's tar of {k} differs "
+                                 "from run A's")
+    first = next(iter(slides))
+    if convert(slides[first], {"slide_id": first}) != runs["A"]["tars"][first]:
+        raise AssertionError(f"phase 10: {first}'s pipeline tar differs from "
+                             "a direct conversion")
+    return dict(size=SPINE_SIZE, slides=SPINE_SLIDES, levels=n_levels,
+                scan_s=scan_s, launches=runs["B"]["launches"],
+                **{f"run_{n}": {k: v for k, v in r.items() if k != "tars"}
+                   for n, r in runs.items()})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1597,6 +1841,10 @@ def main() -> int:
     # 9. serving rwkv6-3b at full width
     serving = run_serving(args.seed)
     _log("serving: " + json.dumps(serving))
+
+    # 10. the event-driven pipeline on the card
+    spine = run_spine(args.seed, card)
+    _log("spine: " + json.dumps(spine))
 
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,

@@ -14,6 +14,11 @@ source or header is rebuilt and a stale library is never loaded.
 FMA: the kernels must round exactly where their plain versions do. ``--use_fast_math`` is
 never used. All sources build in parallel, one nvcc each.
 
+Builds are serialised in the process (a ``TrackedLock``; pipeline workers
+may reach their first launch together) and each nvcc writes a temporary
+file named for its process and thread, renamed into place when it
+succeeds, so concurrent builders in other processes never share one.
+
 Nothing here runs at import time: ``nvcc`` and the ``ctypes`` load happen
 inside :func:`library`, which the wrappers in ``ops.py`` call only when
 they launch a kernel on a CUDA tensor.
@@ -25,8 +30,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from functools import lru_cache
 from pathlib import Path
+
+from repro_torch.analysis.lockdep import TrackedLock
 
 __all__ = ["NVCC_FLAGS", "build_all", "library"]
 
@@ -73,21 +81,31 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-@lru_cache(maxsize=None)
+_BUILD_LOCK = TrackedLock("kernels._build.build_all")
+
+
 def build_all() -> dict[str, str]:
     """Compile every kernel whose library is missing, all nvccs at once.
 
     Returns ``{name: compiler output}`` (ptxas' register and shared-memory
-    report for each kernel built in this call). Raises ``RuntimeError``
-    with the compiler's output if any build fails.
+    report for each kernel built by the first call; later calls return
+    the same). Raises ``RuntimeError`` with the compiler's output if any
+    build fails. Concurrent first calls build once: the others wait.
     """
+    with _BUILD_LOCK:
+        return _build_all()
+
+
+@lru_cache(maxsize=None)
+def _build_all() -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in _ENTRIES:
         so = _target(name)
         if so.exists():
             continue
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        tmp = so.with_name(
+            f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         jobs[name] = (so, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

@@ -12,7 +12,8 @@
   tests and ``chip_smoke.py`` compare kernels against it).
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain
-integer, incremented only where the kernel is launched), so a run can show
+integer, incremented under a lock only where the kernel is launched, so
+the count stays exact when several threads launch), so a run can show
 that its main path went through the kernels.
 
 Unlike ``repro.kernels.ops`` there is no power-of-two bucketing of the
@@ -26,6 +27,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from repro_torch.analysis.lockdep import TrackedLock
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
@@ -101,6 +103,17 @@ def _host_table(qtable) -> np.ndarray:
     return q
 
 
+_COUNT_LOCK = TrackedLock("kernels.ops.launches")
+
+
+def _count(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel: the read-modify-write of
+    ``wrapper.launches`` under a lock, since pipeline workers launch from
+    several threads at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def _launch(name: str, t: torch.Tensor, *args) -> None:
     """Call kernel ``name``'s C launcher with ``args`` and the current
     stream of ``t``'s card; raise if the launch failed.
@@ -142,7 +155,7 @@ def jpeg_transform(tiles: torch.Tensor, qluma=None, qchroma=None,
     q = _host_tables(qluma, qchroma)
     _launch("jpeg_transform", tiles, tiles.data_ptr(), out.data_ptr(), N, H,
             W, q.ctypes.data)
-    jpeg_transform.launches += 1
+    _count(jpeg_transform)
     return out
 
 
@@ -166,7 +179,7 @@ def downsample2x2(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     if out.numel() == 0:
         return out
     _launch("downsample2x2", img, img.data_ptr(), out.data_ptr(), C, H, W)
-    downsample2x2.launches += 1
+    _count(downsample2x2)
     return out
 
 
@@ -193,7 +206,7 @@ def jpeg_inverse(coef: torch.Tensor, qluma=None, qchroma=None,
     q = _host_tables(qluma, qchroma)
     _launch("jpeg_inverse", coef, coef.data_ptr(), out.data_ptr(), N, H, W,
             q.ctypes.data)
-    jpeg_inverse.launches += 1
+    _count(jpeg_inverse)
     return out
 
 
@@ -215,7 +228,7 @@ def rgb2ycbcr(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     if out.numel() == 0:
         return out
     _launch("rgb2ycbcr", img, img.data_ptr(), out.data_ptr(), H, W)
-    rgb2ycbcr.launches += 1
+    _count(rgb2ycbcr)
     return out
 
 
@@ -242,7 +255,7 @@ def dct8x8_quant(plane: torch.Tensor, qtable=None,
         return out
     _launch("dct8x8_quant", plane, plane.data_ptr(), out.data_ptr(), H, W,
             q.ctypes.data)
-    dct8x8_quant.launches += 1
+    _count(dct8x8_quant)
     return out
 
 
@@ -325,7 +338,7 @@ def entropy_decode(buf: torch.Tensor, offs: torch.Tensor,
             coef.data_ptr(), stop.data_ptr(), err_kind.data_ptr(),
             0 if stats is None else stats.data_ptr(), N, H, W,
             zz.ctypes.data)
-    entropy_decode.launches += 1
+    _count(entropy_decode)
     return coef, stop, err_kind
 
 
@@ -442,7 +455,7 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("wkv_chunk", r, r.data_ptr(), k.data_ptr(), v.data_ptr(),
             logw.data_ptr(), u.data_ptr(), state.data_ptr(), out.data_ptr(),
             final.data_ptr(), scratch.data_ptr(), B, S, H, K)
-    wkv_chunk.launches += 1
+    _count(wkv_chunk)
     return out, final
 
 

@@ -43,6 +43,7 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
+from repro_torch.core import tracing
 from repro_torch.kernels import downsample2x2, jpeg_transform
 from repro_torch.wsi.dicom import (TS_EXPLICIT_LE, TS_JPEG_BASELINE, new_uid,
                                    write_part10)
@@ -264,31 +265,38 @@ def _convert_pipelined(rd: SlideReader, metadata: dict | None,
 
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" \
         else None
-    dev = _upload_level0(rd, device)
+    with tracing.span("convert.upload"):
+        dev = _upload_level0(rd, device)
     TRANSFER_STATS.dispatches += 1
     pending = []
-    for li in range(needed[-1] + 1):
-        if li in needed:
-            pending.append(_fetch_async(jpeg_transform(_tile_batch(dev, tile)),
-                                        copy_stream))
-        if li < needed[-1]:
-            dev = downsample2x2(dev)
-    del dev
+    with tracing.span("convert.dispatch", levels=len(needed)):
+        # asynchronous launches: the span covers the enqueue, not device
+        # time — device work overlaps the per-level entropy spans below
+        for li in range(needed[-1] + 1):
+            if li in needed:
+                pending.append(_fetch_async(
+                    jpeg_transform(_tile_batch(dev, tile)), copy_stream))
+            if li < needed[-1]:
+                dev = downsample2x2(dev)
+        del dev
 
     for li, (host, done) in zip(needed, pending):
-        if done is not None:
-            done.synchronize()
-        coef = host.numpy()
-        TRANSFER_STATS.fetches += 1
         H, W = dims[li]
-        bh, bw = H // tile, W // tile
-        chunks = [coef] if (bh == 0 or bw == 0) \
-            else _level_chunks(coef, bh, bw)
-        frames: list[bytes] = []
-        for ch in chunks:
-            frames += encode_coef_batch(ch)
-        _wrap_level(opt, li, frames, TS_JPEG_BASELINE, tile, H, W,
-                    metadata, study_uid, series_uid)
+        with tracing.span("convert.entropy", level=li):
+            if done is not None:
+                done.synchronize()
+            coef = host.numpy()
+            TRANSFER_STATS.fetches += 1
+            bh, bw = H // tile, W // tile
+            chunks = [coef] if (bh == 0 or bw == 0) \
+                else _level_chunks(coef, bh, bw)
+            frames: list[bytes] = []
+            for ch in chunks:
+                frames += encode_coef_batch(ch)
+            _wrap_level(opt, li, frames, TS_JPEG_BASELINE, tile, H, W,
+                        metadata, study_uid, series_uid)
+            tracing.add_event(None, "convert.checkpoint", level=li,
+                              frames=len(frames))
     return n_levels
 
 
@@ -367,14 +375,29 @@ def convert_wsi_to_dicom(slide_bytes: bytes, metadata: dict | None = None,
     # events and streams below belong to the current CUDA device
     ctx = torch.cuda.device(device) if device.type == "cuda" \
         else nullcontext()
-    with ctx:
-        if opt.pipelined and opt.jpeg and opt.batched:
-            n_levels = _convert_pipelined(rd, metadata, opt, study_uid,
-                                          series_uid, device)
-        else:
-            n_levels = _convert_sync(rd, metadata, opt, study_uid,
-                                     series_uid, device)
-    return _pack_study(opt, n_levels, study_uid, rd.tile)
+    stats0 = (TRANSFER_STATS.uploads, TRANSFER_STATS.dispatches,
+              TRANSFER_STATS.fetches)
+    with tracing.span("convert.slide",
+                      slide=(metadata or {}).get("slide_id")) as sp:
+        with ctx:
+            if opt.pipelined and opt.jpeg and opt.batched:
+                n_levels = _convert_pipelined(rd, metadata, opt, study_uid,
+                                              series_uid, device)
+            else:
+                n_levels = _convert_sync(rd, metadata, opt, study_uid,
+                                         series_uid, device)
+        with tracing.span("convert.pack", levels=n_levels):
+            out = _pack_study(opt, n_levels, study_uid, rd.tile)
+        if sp is not None:
+            # TRANSFER_STATS is advisory (not thread-synced): under
+            # concurrent conversions the deltas may include a neighbour's
+            # transfers — they annotate, they don't assert
+            sp.attrs.update(
+                levels=n_levels,
+                uploads=TRANSFER_STATS.uploads - stats0[0],
+                dispatches=TRANSFER_STATS.dispatches - stats0[1],
+                fetches=TRANSFER_STATS.fetches - stats0[2])
+    return out
 
 
 def study_levels(study_tar: bytes) -> dict[str, bytes]:
