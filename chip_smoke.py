@@ -123,7 +123,37 @@ raises (exit code ≠ 0) on any failed check:
     exported level-0 TIFF equal to ``decode_frames`` of the stored frames.
     Prints each run's batch wall time and level-0 MPix/s, the summed
     ``pipeline.convert`` span time, the ``convert.*`` spans' shares, peak
-    device memory, inference frames and export MPix/s.
+    device memory, inference frames and export MPix/s;
+11. the dense family served through the bus — ``phi4-mini-3.8b`` at full
+    width (32 layers, d_model 3072, 24 heads and 8 KV heads of 128, d_ff
+    8192, vocab 200064, tied embeddings, RoPE on 0.75 of each head; 3.84 B
+    parameters in bf16, random from a seeded generator), 4 slots,
+    ``max_len`` 4096, phase 9's six prompts with 32 new tokens each,
+    published on a request ``Topic`` and answered through
+    ``PubSubFrontend`` on a ``SimScheduler`` as ``launch/serve.py`` runs
+    it. It launches none of the kernels above (attention is plain
+    PyTorch, in float32, as the reference computes it outside any Pallas
+    kernel), and the counts must stay 0. Gates: six responses of 32
+    tokens, every message acked; the tokens equal a direct
+    ``engine.submit`` run's; the 64-token request's tokens equal a
+    token-by-token ``M.prefill`` + ``M.decode_step`` loop's at the
+    engine's 4 rows (the loop at one row is reported: cuBLAS picks its
+    kernel by the row count, and bf16 rounds the two apart); at 2 layers
+    of the same width in float32 (TF32 off, a 1100-token prompt that pads
+    the last attention chunk) the card's prefill logits and one decode
+    step within ``DENSE_CPU_BOUND`` (``max|Δ| / (max|CPU| + 1)``) of the
+    CPU's plain run of the same parameters, and ``+kv8``'s int8 cache
+    within 0.25 of the float cache's decode logits (the bound of
+    tests/test_models_smoke.py). Prints init s, prefill tokens/s per
+    prompt (the engine's prefill call alone, median of 3), decode
+    tokens/s, tokens per tick and ms per tick, a profiled 2048-token
+    prefill and 4-slot decode step (kernels, device ms against wall ms,
+    busy share; each one call's by difference of a 3-call and a 1-call
+    trace, since a trace late in this process misses its first kernels)
+    with an estimate of the attention's device time and share (not read
+    from the prefill's trace: one ``blocked_attention`` call at a layer's
+    shapes on random q/k/v in a trace of its own, times the layers), and
+    peak device memory.
 
 Prints the kernel JSON line and the card line before the last line, which
 is ``{"ok": true, "device": {...}}``.
@@ -131,6 +161,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -1236,31 +1267,99 @@ def _requests(prompts, tokens: dict, max_new: int):
             for i, p in enumerate(prompts)]
 
 
-def _serve_timed(cfg, params, prompts, max_new: int = SERVE_NEW) -> dict:
+def _bus_intake(eng, prompts, max_new: int, tokens: dict):
+    """The launcher's intake: each prompt published on a request ``Topic``
+    and delivered through ``PubSubFrontend`` on a ``SimScheduler`` (the
+    engine's submits and first prefills); a client subscription collects
+    the responses into ``tokens``. Returns the scheduler and the front
+    end."""
+    from repro_torch.core import SimScheduler, Subscription, Topic
+    from repro_torch.serve.engine import PubSubFrontend
+
+    sched = SimScheduler()
+    req, resp = Topic("requests", sched), Topic("responses", sched)
+    Subscription(resp, "client", lambda m, c: (
+        tokens.update({m.data["request_id"]: m.data["tokens"]}), c.ack()))
+    front = PubSubFrontend(eng, req, resp)
+    for i, p in enumerate(prompts):
+        req.publish({"request_id": i, "prompt": p.tolist(),
+                     "max_new_tokens": max_new})
+    sched.run(until=0.0)
+    return sched, front
+
+
+def _serve_timed(cfg, params, prompts, max_new: int = SERVE_NEW, *,
+                 bus: bool = False) -> dict:
     """The main path: the engine as a user runs it, every request submitted
-    and ticks run until it drains, each submit and tick timed on the host
-    (synchronised). Returns the tokens, the ticks' times and what each
-    admitted."""
+    (directly, or with ``bus`` through :func:`_bus_intake`, the launcher's
+    path) and ticks run until it drains, the intake and each tick timed on
+    the host (synchronised). Returns the tokens, the ticks' times with the
+    prompt lengths each admitted, and with ``bus`` the messages acked and
+    outstanding once the responses are delivered."""
     import torch
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
     eng = ContinuousBatchingEngine(cfg, params, batch_size=SERVE_SLOTS,
                                    max_len=SERVE_MAX_LEN)
-    tokens, ticks = {}, []
+    tokens, ticks, out = {}, [], {}
     t0 = time.perf_counter()
-    for req in _requests(prompts, tokens, max_new):
-        eng.submit(req)
+    if bus:
+        sched, front = _bus_intake(eng, prompts, max_new, tokens)
+    else:
+        for req in _requests(prompts, tokens, max_new):
+            eng.submit(req)
     torch.cuda.synchronize()
     submit_s = time.perf_counter() - t0
     while eng.backlog or any(eng.active):
-        before = [r.req_id for r in eng.backlog]
+        before = [len(r.prompt) for r in eng.backlog]
         t1 = time.perf_counter()
         eng.tick()
         torch.cuda.synchronize()
         admitted = before[:len(before) - len(eng.backlog)]
         ticks.append((time.perf_counter() - t1, admitted))
+    if bus:
+        sched.run()  # the responses
+        out = dict(acked=len(front.sub.acked),
+                   outstanding=len(front.sub.outstanding))
     return dict(tokens=tokens, ticks=ticks, submit_s=submit_s,
-                wall_s=time.perf_counter() - t0)
+                wall_s=time.perf_counter() - t0, **out)
+
+
+def _prefill_s(params, cfg, prompts, impl="auto", reps: int = 3) -> dict:
+    """Host wall time (median of ``reps``) of the engine's prefill call for
+    each prompt, synchronised, by prompt length."""
+    import torch
+    from repro_torch.models import model as M
+
+    dev = params["embed"]["table"].device
+    out = {}
+    for p in prompts:
+        toks = torch.as_tensor(p, device=dev)[None].long()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            M.prefill(params, cfg, toks, max_len=SERVE_MAX_LEN, impl=impl)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        out[len(p)] = statistics.median(times)
+    return out
+
+
+def _decode_rates(run: dict, pre_s: dict) -> dict:
+    """Decode throughput of a :func:`_serve_timed` run: a tick's time less
+    the prefills it admitted, each timed alone (``pre_s``); ``ms_per_tick``
+    is the median tick that admitted none."""
+    decode_tokens = sum(len(t) - 1 for t in run["tokens"].values())
+    decode_s = sum(t for t, _ in run["ticks"]) - sum(
+        pre_s[n] for _, ns in run["ticks"] for n in ns)
+    return dict(
+        decode_tokens=decode_tokens, decode_ticks=len(run["ticks"]),
+        ticks_admitting=sum(1 for _, ns in run["ticks"] if ns),
+        decode_s=decode_s, decode_tok_per_s=decode_tokens / decode_s,
+        tokens_per_tick=decode_tokens / len(run["ticks"]),
+        ms_per_tick=1e3 * statistics.median(t for t, ns in run["ticks"]
+                                            if not ns))
 
 
 def _serve_recorded(cfg, params, prompts, impl) -> dict:
@@ -1435,23 +1534,6 @@ def run_serving(seed: int) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in SERVE_PROMPTS]
 
-    def prefill_s(cfg_, impl, reps):
-        """Host wall time (median of ``reps``) of the engine's prefill call
-        for each prompt, synchronised."""
-        out = {}
-        for p in prompts:
-            toks = torch.as_tensor(p, device=dev)[None].long()
-            times = []
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                M.prefill(params, cfg_, toks, max_len=SERVE_MAX_LEN,
-                          impl=impl)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t1)
-            out[len(p)] = statistics.median(times)
-        return out
-
     # warm-up (cuBLAS handles, the kernel's module, the allocator's pools
     # at every prompt length), then the main path's run
     _serve_timed(cfg, params, prompts, max_new=2)
@@ -1464,7 +1546,7 @@ def run_serving(seed: int) -> dict:
     want["wkv_chunk"] = cfg.num_layers * len(prompts)
     if launches != want:
         raise AssertionError(f"serving launches {launches}, expected {want}")
-    pre_s = prefill_s(cfg, "auto", 3)
+    pre_s = _prefill_s(params, cfg, prompts)
 
     # the comparisons, each an engine run that records its logits: the
     # kernel, the plain wkv (every call shadow-checked against the kernel)
@@ -1497,12 +1579,7 @@ def run_serving(seed: int) -> dict:
         for r in rr:
             r["prompt"] = len(prompts[r["request"]])
 
-    decode_tokens = sum(len(t) - 1 for t in run["tokens"].values())
-    # a tick's time less the prefills it admitted, each timed alone
-    decode_s = sum(t for t, _ in run["ticks"]) - sum(
-        pre_s[len(prompts[i])] for _, ids in run["ticks"] for i in ids)
-    ms_per_tick = 1e3 * statistics.median(t for t, ids in run["ticks"]
-                                          if not ids)
+    rates = _decode_rates(run, pre_s)
     # device time inside one 2048-token prefill and one 4-slot decode step
     tokens = torch.as_tensor(prompts[0], device=dev)[None].long()
     cache = M.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
@@ -1514,7 +1591,7 @@ def run_serving(seed: int) -> dict:
             1e3 * pre_s[len(prompts[0])]),
         "decode_step": _profile(
             lambda: M.decode_step(params, cfg, cache, step, pos),
-            ms_per_tick)}
+            rates["ms_per_tick"])}
     from repro_torch.kernels import ops
     want_wkv = cfg.num_layers * ops.WKV_KERNELS_PER_CALL
     if profiles["prefill_2048"]["wkv_kernels"] != want_wkv:
@@ -1526,14 +1603,9 @@ def run_serving(seed: int) -> dict:
         launches=launches, peak_gb=peak_gb, wall_s=run["wall_s"],
         submit_s=run["submit_s"],
         prefill_tok_per_s={n: n / pre_s[n] for n in SERVE_PROMPTS},
-        prefill_s=pre_s, decode_tokens=decode_tokens,
-        decode_ticks=len(run["ticks"]),
-        ticks_admitting=sum(1 for _, ids in run["ticks"] if ids),
-        decode_s=decode_s, decode_tok_per_s=decode_tokens / decode_s,
-        tokens_per_tick=decode_tokens / len(run["ticks"]),
-        ms_per_tick=ms_per_tick, profiles=profiles,
-        plain_prefill_s=prefill_s(cfg, "ref", 1),
-        f32_prefill_s=prefill_s(cfg32, "auto", 1),
+        prefill_s=pre_s, **rates, profiles=profiles,
+        plain_prefill_s=_prefill_s(params, cfg, prompts, "ref", 1),
+        f32_prefill_s=_prefill_s(params, cfg32, prompts, "auto", 1),
         shadow_checked_calls=shadow["calls"],
         shadow_max_rel_err=shadow["max_rel_err"],
         witness_spread=spread, logit_rel_bound=bounds, compare=rows)
@@ -1761,6 +1833,243 @@ def run_spine(seed: int, card: str) -> dict:
                    for n, r in runs.items()})
 
 
+# phase 11: the dense family served through the bus
+DENSE_ARCH = "phi4-mini-3.8b"
+# gates 4 and 5: the full width at this depth in float32; a prompt that is
+# not a multiple of the 1024-key attention chunk (its last chunk padded)
+DENSE_CHECK_LAYERS = 2
+DENSE_CHECK_PROMPT = 1100
+# gate 4: max|Δ| / (max|CPU| + 1) of the card's float32 logits (TF32 off)
+# against the CPU's plain run of the same parameters: float32 sums in
+# other orders (cuBLAS against the CPU's BLAS) over two layers
+DENSE_CPU_BOUND = 1e-4
+# gate 5: tests/test_models_smoke.py's bound for an int8 KV cache
+KV8_BOUND = 0.25
+
+
+def _greedy_loop(cfg, params, prompt, n: int, rows: int) -> list:
+    """Token by token with ``M.prefill`` + ``M.decode_step``: the prompt's
+    prefill cache in row 0 of a ``rows``-row cache (the other rows idle at
+    position 0), ``n`` greedy tokens. At the engine's width (``rows`` =
+    its slots) each step runs the engine's kernels: a GEMM's rows do not
+    depend on each other, but which kernel cuBLAS picks depends on the row
+    count, and bf16 rounds the two apart."""
+    import torch
+    from repro_torch.models import model as M
+
+    dev = params["embed"]["table"].device
+    logits, one = M.prefill(params, cfg,
+                            torch.as_tensor(prompt, device=dev)[None].long(),
+                            max_len=SERVE_MAX_LEN)
+    cache = M.init_cache(cfg, rows, SERVE_MAX_LEN, dev)
+    for key, dst in cache.items():
+        if key == "kv_pos":
+            dst[0] = one[key][0]
+        else:
+            dst[:, 0] = one[key][:, 0]
+    out = [int(torch.argmax(logits[0]))]
+    tok = torch.zeros((rows, 1), dtype=torch.long, device=dev)
+    pos = torch.zeros(rows, dtype=torch.int32, device=dev)
+    for i in range(n - 1):
+        tok[0, 0], pos[0] = out[-1], len(prompt) + i
+        logits, cache = M.decode_step(params, cfg, cache, tok, pos)
+        out.append(int(torch.argmax(logits[0])))
+    return out
+
+
+def _dense_cpu_checks(params, cfg, seed: int) -> dict:
+    """Gates 4 and 5 at the full width cut to DENSE_CHECK_LAYERS layers in
+    float32 (the first layers of the served parameters): the card's
+    prefill logits and one decode step against the CPU's plain run of the
+    same parameters, and the ``+kv8`` run's decode logits against the
+    float cache's on the card."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+
+    n = DENSE_CHECK_LAYERS
+    sub = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "layers": tree_map(lambda a: a[:n], params["layers"])}
+    rng = np.random.default_rng(seed + 11)
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, DENSE_CHECK_PROMPT))
+    tok = rng.integers(0, cfg.vocab_size, size=(1, 1))
+
+    def cut(c):
+        return dataclasses.replace(c, num_layers=n, dtype=torch.float32,
+                                   name=f"{c.name}-{n}L+f32")
+
+    def run(p, c, dev):
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(p, c, torch.as_tensor(prompt, device=dev),
+                                  max_len=DENSE_CHECK_PROMPT + 8)
+        step, cache = M.decode_step(
+            p, c, cache, torch.as_tensor(tok, device=dev),
+            torch.full((1,), DENSE_CHECK_PROMPT, dtype=torch.int32,
+                       device=dev))
+        out = (logits.cpu(), step.cpu(), cache["k"].dtype)
+        return out + (time.perf_counter() - t0,)
+
+    cfg32, cfg8 = cut(cfg), cut(get_config(DENSE_ARCH + "+kv8"))
+    card = run(sub, cfg32, torch.device("cuda"))
+    host = run(tree_map(lambda a: a.cpu(), sub), cfg32, torch.device("cpu"))
+    kv8 = run(sub, cfg8, torch.device("cuda"))
+    rel = {}
+    for what, got, want in (("prefill", card[0], host[0]),
+                            ("decode", card[1], host[1])):
+        rel[what] = r = _rel(got, want)
+        if not (bool(torch.isfinite(got).all()) and r < DENSE_CPU_BOUND):
+            raise AssertionError(f"phase 11: the card's {what} logits lie "
+                                 f"{r:.3e} from the CPU's (bound "
+                                 f"{DENSE_CPU_BOUND})")
+    if kv8[2] != torch.int8:
+        raise AssertionError(f"phase 11: the +kv8 cache is {kv8[2]}")
+    kv8_err = float((kv8[1] - card[1]).abs().max())
+    if not kv8_err < KV8_BOUND:
+        raise AssertionError(f"phase 11: the int8 cache's decode logits lie "
+                             f"{kv8_err:.4f} from the float cache's (bound "
+                             f"{KV8_BOUND})")
+    return dict(layers=n, prompt=DENSE_CHECK_PROMPT,
+                cpu_rel=rel, cpu_rel_bound=DENSE_CPU_BOUND,
+                kv8_decode_max_abs=kv8_err, kv8_bound=KV8_BOUND,
+                kv8_prefill_equal=bool(torch.equal(kv8[0], card[0])),
+                logit_max_abs=float(host[1].abs().max()),
+                card_s=card[3], cpu_s=host[3])
+
+
+def _profile_per_call(fn, wall_ms: float) -> dict:
+    """One call of ``fn``'s kernels by difference: a trace of 3 calls less
+    a trace of 1 call, halved. A trace taken late in a long process can
+    miss its first kernels, the same number in every trace (12 in phase
+    11 after phases 1–10, one after a single conversion), so the
+    difference is one call's kernels where one trace is not;
+    ``trace_lost`` is how many the one-call trace missed. ``busy_share``
+    is the device time over the call's unprofiled host wall time
+    ``wall_ms``."""
+    one, _ = _device_kernels(fn, 1)
+    three, _ = _device_kernels(fn, 3)
+    per = {key: [ms, n] for key, ms, n in three}
+    for key, ms, n in one:
+        row = per.setdefault(key, [0.0, 0])
+        row[0] -= ms
+        row[1] -= n
+    rows = sorted(((k, ms / 2, n // 2) for k, (ms, n) in per.items() if n),
+                  key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    kernels = sum(r[2] for r in rows)
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms, kernels=kernels,
+                trace_lost=kernels - sum(r[2] for r in one),
+                top=[dict(name=k[:90], ms=ms, calls=c)
+                     for k, ms, c in rows[:6]])
+
+
+def run_dense_serving(seed: int, card: str) -> dict:
+    """Phase 11: phi4-mini-3.8b at full width served through the bus."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as lyr
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_defs
+
+    cfg = get_config(DENSE_ARCH)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_defs(params))
+    if n_params != M.param_count(cfg):
+        raise AssertionError(f"phase 11: {n_params} parameters, expected "
+                             f"{M.param_count(cfg)}")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    # warm-up (cuBLAS handles and the allocator's pools at every prompt
+    # length), then the main path through the bus
+    _serve_timed(cfg, params, prompts, 2, bus=True)
+    gc.collect()  # the warm-up's engine and bus hold each other in cycles
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_timed(cfg, params, prompts, bus=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = _read_launches()
+    # gate 1: every response, each with its tokens, every message acked
+    lengths = {i: len(t) for i, t in run["tokens"].items()}
+    if lengths != {i: SERVE_NEW for i in range(len(prompts))} or \
+            run["acked"] != len(prompts) or run["outstanding"]:
+        raise AssertionError(f"phase 11: responses {lengths}, {run['acked']} "
+                             f"acked, {run['outstanding']} outstanding")
+    if any(launches.values()):
+        raise AssertionError(f"phase 11: the dense path launched {launches}")
+    # gate 2: the bus run's tokens are a direct engine.submit run's
+    if _serve_timed(cfg, params, prompts)["tokens"] != run["tokens"]:
+        raise AssertionError("phase 11: the bus run's tokens differ from a "
+                             "direct engine run's")
+    # gate 3: the shortest request against the token-by-token loop at the
+    # engine's width; the loop at one row is reported beside it
+    last = len(prompts) - 1
+    loop = _greedy_loop(cfg, params, prompts[last], SERVE_NEW, SERVE_SLOTS)
+    if loop != run["tokens"][last]:
+        raise AssertionError(f"phase 11: the {len(prompts[last])}-token "
+                             "request's tokens differ from the "
+                             "prefill + decode_step loop's")
+    solo = _greedy_loop(cfg, params, prompts[last], SERVE_NEW, 1)
+    solo_part = next((j for j, (a, b) in enumerate(zip(solo, loop))
+                      if a != b), None)
+    # gates 4 and 5
+    checks = _dense_cpu_checks(params, cfg, seed)
+
+    pre_s = _prefill_s(params, cfg, prompts)
+    rates = _decode_rates(run, pre_s)
+
+    # one profiled 2048-token prefill and 4-slot decode step, and an
+    # estimate of the attention's device time in that prefill, taken from
+    # another trace: one blocked_attention call at a layer's shapes on
+    # random q/k/v (profiled the same way) times the layers
+    tokens = torch.as_tensor(prompts[0], device=dev)[None].long()
+    cache = M.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
+    step = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.full((SERVE_SLOTS,), 100, dtype=torch.int32, device=dev)
+    profiles = {
+        "prefill_2048": _profile_per_call(
+            lambda: M.prefill(params, cfg, tokens, max_len=SERVE_MAX_LEN),
+            1e3 * pre_s[len(prompts[0])]),
+        "decode_step": _profile_per_call(
+            lambda: M.decode_step(params, cfg, cache, step, pos),
+            rates["ms_per_tick"])}
+    del cache
+    S = len(prompts[0])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((1, S, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device=dev).to(cfg.dtype)
+    k, v = (torch.randn((1, S, cfg.num_kv_heads, cfg.head_dim), generator=gen,
+                        device=dev).to(cfg.dtype) for _ in range(2))
+    qpos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    attn = _profile_per_call(lambda: lyr.blocked_attention(
+        q, k, v, qpos, qpos, chunk=cfg.attn_chunk), math.nan)
+    pf = profiles["prefill_2048"]
+    pf.update(attention_ms_est=cfg.num_layers * attn["device_ms"],
+              attention_share_est=cfg.num_layers * attn["device_ms"]
+              / pf["device_ms"],
+              attention_kernels_est=cfg.num_layers * attn["kernels"],
+              attention_trace_lost=attn["trace_lost"])
+    return dict(
+        card=card, arch=cfg.name, params=n_params, init_s=init_s,
+        launches=launches, peak_gb=peak_gb, wall_s=run["wall_s"],
+        submit_s=run["submit_s"], responses=len(run["tokens"]),
+        prefill_tok_per_s={n: n / pre_s[n] for n in SERVE_PROMPTS},
+        prefill_s=pre_s, **rates, profiles=profiles,
+        loop_prompt=len(prompts[last]), one_row_loop_parts_at=solo_part,
+        checks=checks)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1845,6 +2154,10 @@ def main() -> int:
     # 10. the event-driven pipeline on the card
     spine = run_spine(args.seed, card)
     _log("spine: " + json.dumps(spine))
+
+    # 11. the dense family served through the bus
+    dense = run_dense_serving(args.seed, card)
+    _log("dense serving: " + json.dumps(dense))
 
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,

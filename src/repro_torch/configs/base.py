@@ -1,9 +1,15 @@
-"""The architecture config dataclass.
+"""Config dataclasses for architectures and input shapes.
 
-A copy of ``repro.configs.base.ModelConfig`` with ``dtype`` a torch dtype,
-holding only the fields the ported family (``ssm``: RWKV6) reads. The other
-families' fields (attention, MoE, Mamba2, cross-attention, the KV cache) and
-the shape grid come back with the families that read them (ROADMAP A9).
+A copy of ``repro.configs.base`` with ``dtype`` a torch dtype. One
+``ModelConfig`` per registered architecture lives in
+``repro_torch/configs/<id>.py``; the shared shape grid lives here. The
+config holds the reference's fields that the ported families (dense, ssm)
+and the shape grid read, each with the reference's default, so
+:meth:`ModelConfig.reduced` equals the reference's field by field. The
+MoE, Mamba2 and cross-attention fields come with their families,
+``attn_bias`` with the first family that builds attention biases (no
+registered arch sets it), and the layer scan's ``scan_layers`` / ``remat``
+with ``train/`` (ROADMAP A9; the port walks layers in a Python loop).
 """
 from __future__ import annotations
 
@@ -12,42 +18,89 @@ from typing import Any
 
 import torch
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # ssm (the other families come with ROADMAP A9)
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
+    num_kv_heads: int
     head_dim: int
     d_ff: int
     vocab_size: int
 
+    mlp_type: str = "swiglu"  # swiglu | geglu | relu2 | gelu
     norm_eps: float = 1e-5
+    rope_theta: float = 10_000.0
+    rope_fraction: float = 1.0
+    tie_embeddings: bool = False
+    parallel_block: bool = False  # command-r style joint attn+FFN residual
+    embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d_model)
+    sliding_window: int = 0  # 0 = full attention
 
     # RWKV6
+    rwkv: bool = False
     rwkv_lora_dim: int = 32
     rwkv_decay_lora_dim: int = 64
 
+    # numerics / runtime
     dtype: Any = torch.bfloat16  # compute dtype (parameters are bf16)
+    loss_chunk: int = 512  # sequence chunking for the softmax-xent head
+    attn_chunk: int = 1024  # KV-block size for blocked attention
+    kv_cache_dtype: str = "bf16"  # bf16 | int8 (quantized serving KV cache)
 
     source: str = ""  # citation tag from the assignment table
 
+    # ---- derived helpers -------------------------------------------------
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context without O(S) full-attn KV scoring?"""
+        return self.rwkv or self.family in ("ssm", "hybrid") or self.sliding_window > 0
+
+    def supports_shape(self, shape: "ShapeConfig") -> bool:
+        if shape.name == "long_500k":
+            return self.sub_quadratic
+        return True
+
     def reduced(self) -> "ModelConfig":
-        """Smoke-test scale config of the same family (runs on 1 CPU)."""
+        """Smoke-test scale config of the same family (runs on 1 CPU): the
+        reference's ``reduced()`` over the fields the port has."""
+        kv = min(self.num_kv_heads, 2) if self.num_kv_heads else 0
+        heads = 4 if self.num_heads else 0
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
             num_layers=2,
             d_model=64,
-            num_heads=4,
+            num_heads=heads,
+            num_kv_heads=kv if self.num_kv_heads > 1 else min(self.num_kv_heads, 1),
             head_dim=16,
             d_ff=128,
             vocab_size=256,
             rwkv_lora_dim=8,
             rwkv_decay_lora_dim=8,
+            sliding_window=min(self.sliding_window, 32) if self.sliding_window else 0,
+            attn_chunk=32,
+            loss_chunk=32,
             dtype=torch.float32,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -1,0 +1,24 @@
+"""gemma-2b — 18L d_model=2048 8H (MQA kv=1) d_ff=16384 vocab=256000.
+
+GeGLU MLP, head_dim=256, multi-query attention, tied embeddings scaled by
+sqrt(d_model).  [arXiv:2403.08295; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-2b",
+    family="dense",
+    num_layers=18,
+    d_model=2048,
+    num_heads=8,
+    num_kv_heads=1,
+    head_dim=256,
+    d_ff=16384,
+    vocab_size=256_000,
+    mlp_type="geglu",
+    tie_embeddings=True,
+    embed_scale=True,
+    rope_theta=10_000.0,
+    norm_eps=1e-6,
+    source="arXiv:2403.08295; hf",
+)

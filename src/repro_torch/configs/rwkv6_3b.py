@@ -11,8 +11,10 @@ CONFIG = ModelConfig(
     num_layers=32,
     d_model=2560,
     num_heads=40,
+    num_kv_heads=0,
     head_dim=64,
     d_ff=8960,
     vocab_size=65_536,
+    rwkv=True,
     source="arXiv:2404.05892; hf",
 )

@@ -17,7 +17,11 @@ import numpy as np
 import torch
 
 __all__ = ["ParamDef", "materialize", "count_params", "tree_defs",
-           "tree_map"]
+           "tree_map", "UNWRITTEN"]
+
+# the position a KV cache slot holds before anything is written to it (and
+# attention's padded key slots): above every real position
+UNWRITTEN = 2**30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +31,7 @@ class ParamDef:
     shape: tuple[int, ...]
     logical: tuple[str, ...]  # logical axis name per dim ("" = never sharded)
     dtype: Any = torch.bfloat16
-    init: str = "normal"  # normal | zeros | ones | small
+    init: str = "normal"  # normal | zeros | ones | small | unwritten
     scale: float | None = None  # stddev override for "normal"
 
     def __post_init__(self):
@@ -81,8 +85,9 @@ def materialize(defs, generator: torch.Generator, device,
 
     ``normal`` draws N(0, std²) in float32 from ``generator`` (which must
     live on ``device``) with std = ``scale`` or ``1/sqrt(fan_in)``, ``small``
-    draws with std 0.02, ``zeros``/``ones`` fill; each leaf is then cast to
-    its dtype (or ``dtype_override``). The numbers differ from
+    draws with std 0.02, ``zeros``/``ones`` fill and ``unwritten`` fills
+    with :data:`UNWRITTEN` (a KV cache's free slots); each leaf is then
+    cast to its dtype (or ``dtype_override``). The numbers differ from
     ``repro``'s ``jax.random`` draws for the same seed; the rules are the
     same.
     """
@@ -94,6 +99,8 @@ def materialize(defs, generator: torch.Generator, device,
             return torch.zeros(d.shape, dtype=dtype, device=device)
         if d.init == "ones":
             return torch.ones(d.shape, dtype=dtype, device=device)
+        if d.init == "unwritten":
+            return torch.full(d.shape, UNWRITTEN, dtype=dtype, device=device)
         std = d.scale if d.scale is not None else 1.0 / math.sqrt(max(_fan_in(d), 1))
         if d.init == "small":
             std = 0.02

@@ -4,6 +4,9 @@
 them over as nested dicts of numpy arrays. numpy has no bfloat16, so bf16
 leaves travel as float32 (``np.asarray(a.astype(jnp.float32))``) and are
 cast back here to their ``ParamDef`` dtype: bf16 → f32 → bf16 is exact.
+Integer leaves (an int8 KV cache, the int32 ``kv_pos``) travel as they are
+and must arrive in their own dtype. The tree's keys must be the
+definition's: a tied model has no ``head``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,11 @@ def _from_numpy(defs, tree, device):
         if tuple(a.shape) != tuple(d.shape):
             raise ValueError(f"shape {a.shape} does not match the "
                              f"definition's {d.shape}")
+        if not d.dtype.is_floating_point:
+            want = torch.empty((), dtype=d.dtype).numpy().dtype
+            if a.dtype != want:
+                raise ValueError(f"an integer leaf of {d.dtype} arrived as "
+                                 f"{a.dtype}, not {want}")
         return torch.from_numpy(np.array(a, order="C")).to(
             device=device, dtype=d.dtype)
 

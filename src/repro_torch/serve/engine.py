@@ -1,6 +1,9 @@
-"""Continuous-batching serving engine, a copy of ``repro.serve.engine``.
+"""Continuous-batching serving engine with event-driven intake, a copy of
+``repro.serve.engine``.
 
-Inside one engine:
+The paper's pattern applied to LM serving: requests land on a pub/sub topic
+(the "landing zone"), a push subscription feeds engine instances (the
+"containers"), results publish to a response topic. Inside one engine:
 
 * a fixed-size slot array (the decode batch) over one shared cache,
 * per-request prefill (batch 1) writes its state into a free slot,
@@ -9,10 +12,10 @@ Inside one engine:
 * finished slots free immediately and the backlog refills them.
 
 The engine is synchronous and deterministic (tests drive ``tick()``
-directly). Decode runs eagerly, one ``decode_step`` call per tick. The
-cache lives on the parameters' device; the slot splice writes into it in
-place. ``PubSubFrontend`` (the event-bus adapter) waits for the port's
-copy of ``core/`` (ROADMAP A4): requests are submitted directly.
+directly); ``PubSubFrontend`` adapts it to the port's event bus
+(:mod:`repro_torch.core.pubsub`). Decode runs eagerly, one ``decode_step``
+call per tick. The cache lives on the parameters' device; the slot splice
+writes into it in place, and so does the decode step.
 """
 from __future__ import annotations
 
@@ -24,10 +27,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core.pubsub import Subscription
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_map
 
-__all__ = ["ContinuousBatchingEngine", "Request"]
+__all__ = ["ContinuousBatchingEngine", "PubSubFrontend", "Request"]
 
 _ids = itertools.count(1)
 
@@ -43,7 +47,7 @@ class Request:
 
 class ContinuousBatchingEngine:
     """Greedy decoding (argmax, the first index on ties, in
-    :meth:`_greedy`). ``impl`` goes to the prefill's wkv
+    :meth:`_greedy`). ``impl`` goes to the ssm prefill's wkv
     (:func:`repro_torch.models.model.prefill`)."""
 
     def __init__(self, cfg, params, *, batch_size: int = 4,
@@ -81,7 +85,10 @@ class ContinuousBatchingEngine:
         logits, cache1 = M.prefill(self.params, self.cfg, toks,
                                    max_len=self.max_len, impl=self.impl)
 
-        # splice the request's caches into slot b (in place)
+        # splice the request's caches into slot b (in place), by the
+        # reference's two rules: a layer-stacked leaf (L, B, ...) — the
+        # K/V (L, B, W, KV, hd), their int8 scales, the ssm states — at
+        # [:, b]; a per-slot leaf (B, ...) — kv_pos (B, W) — at [b]
         def splice(dst, src):
             if dst.dim() >= 2 and src.shape[1] == 1 and dst.shape[1] == self.B:
                 dst[:, b] = src[:, 0].to(dst.dtype)
@@ -138,3 +145,34 @@ class ContinuousBatchingEngine:
     def run_until_drained(self, max_steps: int = 10_000):
         while (self.backlog or any(self.active)) and self.steps < max_steps:
             self.tick()
+
+
+class PubSubFrontend:
+    """Event-bus adapter: request topic → engine, results → response topic.
+
+    Each message (``{"request_id", "prompt", "max_new_tokens"}``) is
+    submitted to the engine; it is acked only when its request finishes,
+    after its tokens are published (``{"request_id", "tokens"}``), so an
+    engine that dies mid-request leaves it to redeliver.
+    """
+
+    def __init__(self, engine: ContinuousBatchingEngine, topic, response_topic,
+                 name: str = "llm-serve"):
+        self.engine = engine
+        self.response_topic = response_topic
+        self.sub = Subscription(topic, name, self._on_message,
+                                ack_deadline=300.0)
+
+    def _on_message(self, msg, ctx):
+        data = msg.data
+
+        def done(tokens):
+            self.response_topic.publish(
+                {"request_id": data.get("request_id"), "tokens": tokens})
+            ctx.ack()
+
+        self.engine.submit(Request(
+            prompt=np.asarray(data["prompt"], np.int32),
+            max_new_tokens=int(data.get("max_new_tokens", 16)),
+            done=done,
+        ))

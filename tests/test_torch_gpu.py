@@ -1,6 +1,6 @@
 """The port on a CUDA card: each kernel vs its plain version, the
-converter, the decoders and the RWKV6 serving path on the card vs their
-CPU plain paths. Every
+converter, the decoders and the RWKV6 and dense serving paths on the
+card vs their CPU plain paths. Every
 test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a GPU machine that has none:
 
@@ -565,3 +565,36 @@ def test_rwkv_smoke_engine_on_card_matches_cpu(cuda_device):
         eng.run_until_drained()
         runs.append(got)
     assert runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("name", ["phi4-mini-3.8b-smoke",
+                                  "phi4-mini-3.8b-smoke+kv8",
+                                  "gemma-2b-smoke"])
+def test_dense_smoke_prefill_and_decode_on_card_match_cpu(cuda_device, name):
+    """The f32 dense smoke models (plain PyTorch attention; cuBLAS on the
+    card) vs the CPU: logits and float K/V to 1e-4, an int8 cache within
+    one step of the CPU's; two decode steps, each writing the cache in
+    place on both."""
+    cfg = get_config(name)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 37))).long()
+    got, got_cache = M.prefill(card, cfg, tokens.to(cuda_device), max_len=64)
+    want, want_cache = M.prefill(params, cfg, tokens, max_len=64)
+    assert _rel(got, want) < 1e-4
+    for step in range(2):
+        for key, t in got_cache.items():
+            w = want_cache[key]
+            if t.dtype == torch.float32:
+                assert _rel(t, w) < 1e-4, key
+            else:  # int8 K/V, int32 kv_pos
+                assert (t.cpu().int() - w.int()).abs().max() <= \
+                    (1 if t.dtype == torch.int8 else 0), key
+        tok = torch.tensor([[3 + step], [7]])
+        pos = torch.full((2,), 37 + step, dtype=torch.int32)
+        got, new = M.decode_step(card, cfg, got_cache, tok.to(cuda_device),
+                                 pos.to(cuda_device))
+        assert all(new[k] is got_cache[k] for k in new)
+        want, _ = M.decode_step(params, cfg, want_cache, tok, pos)
+        assert _rel(got, want) < 1e-4

@@ -86,14 +86,18 @@ def test_prefill_and_decode_match_jax(smoke, S):
     jlogits, jnew = JM.decode_step(jparams, jcfg, jcache, jnp.asarray(tok),
                                    jnp.asarray(pos))
     carried = cache_from_numpy(_host(jcache), cfg, 2, 256, "cpu")
-    before = {k: v.clone() for k, v in carried["rwkv"].items()}
+    wkv = carried["rwkv"]["wkv"]
     logits, new = M.decode_step(params, cfg, carried,
                                 torch.from_numpy(tok).long(),
                                 torch.from_numpy(pos))
     assert _rel(logits, jlogits) < F32_BOUND
     _check_cache(new, jnew)
-    # decode_step returns a new cache and leaves its input alone
-    assert all(torch.equal(before[k], carried["rwkv"][k]) for k in before)
+    # decode_step writes the new state into the cache it was given: the
+    # float32 wkv state in place; the bf16 token shifts become float32,
+    # as the reference's scan returns them from this f32 model
+    assert new is carried and new["rwkv"]["wkv"] is wkv
+    assert jnew["rwkv"]["shift_tm"].dtype == jnp.float32
+    assert new["rwkv"]["shift_tm"].dtype == torch.float32
 
 
 def _run_jax_engine(jcfg, jparams, prompts, max_new, slots, max_len):
@@ -196,10 +200,15 @@ def test_get_config_resolves_smoke_and_rejects_variants():
     cfg = get_config("rwkv6-3b-smoke")
     assert cfg == get_config("rwkv6-3b").reduced()
     assert (cfg.num_layers, cfg.d_model, cfg.vocab_size) == (2, 64, 256)
-    # the reference's runtime variants come with the families that read
-    # them; an unported arch is refused by name
-    for name in ("rwkv6-3b+kv8", "rwkv6-3b+ac512", "llama3-8b"):
-        with pytest.raises(KeyError):
+    # the reference's runtime variants resolve as the reference resolves
+    # them; an unknown variant or arch is refused by name
+    for name in ("rwkv6-3b+kv8", "rwkv6-3b+ac512", "rwkv6-3b-smoke+kv8"):
+        got, want = get_config(name), jax_get_config(name)
+        assert got.name == want.name
+        assert (got.kv_cache_dtype, got.attn_chunk) == \
+            (want.kv_cache_dtype, want.attn_chunk)
+    for name in ("rwkv6-3b+kv4", "llama3-8b"):
+        with pytest.raises(KeyError, match=name.split("+")[-1]):
             get_config(name)
 
 
@@ -224,11 +233,12 @@ def test_prefill_takes_a_wkv_function_in_place_of_the_kernel(smoke):
                for k in want_cache["rwkv"])
 
 
-def test_other_families_name_the_roadmap_item():
+@pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
+def test_other_families_name_the_roadmap_item(family):
     cfg = get_config("rwkv6-3b-smoke")
     import dataclasses
     with pytest.raises(NotImplementedError, match="A9"):
-        M.model_defs(dataclasses.replace(cfg, family="dense"))
+        M.model_defs(dataclasses.replace(cfg, family=family))
 
 
 def test_launch_serve_smoke_on_cpu(capsys):
