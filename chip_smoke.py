@@ -153,7 +153,44 @@ raises (exit code ≠ 0) on any failed check:
     with an estimate of the attention's device time and share (not read
     from the prefill's trace: one ``blocked_attention`` call at a layer's
     shapes on random q/k/v in a trace of its own, times the layers), and
-    peak device memory.
+    peak device memory;
+12. the moe, hybrid, vlm and audio families (no kernel of the port on
+    this path either: the counts must stay 0). (a) ``mixtral-8x7b`` at
+    full width (d_model 4096, 32 heads and 8 KV heads of 128, 8 experts
+    with top-2, d_ff 14336, vocab 32000, sliding window 4096) cut to 16
+    of its 32 layers (the whole model, 93.4 GB of bf16, does not fit one
+    80 GB card; the cut is printed), 23,482,470,400 parameters, random
+    from a seeded generator, served through the bus as phase 11 serves
+    (4 slots, ``max_len`` 4096, phase 9's prompts, 32 new tokens) with
+    phase 11's gates 1–3; gate 5 at 2 layers of the same width in float32
+    on a 512-token prompt: the top-2 router assignments of each router
+    call (the prefill's layers and the decode step's, read from the
+    model's own run by a tap on ``moe.router_logits``) on the card equal
+    to the CPU's, and the prefill logits and one decode step within
+    ``DENSE_CPU_BOUND`` of the CPU's; where an assignment differs, the
+    CPU runs again with the card's router logits replayed, its own router
+    on that path may part from the card's only where its probability
+    margin is below ``ROUTER_FLIP_LIMIT``, and the logits are held to
+    ``DENSE_CPU_BOUND`` against that run; gate 6, ``+kv8`` within 0.25
+    of the float cache's decode logits. Prints init s, peak GB, prefill
+    tokens/s per prompt, decode tokens/s, tokens per tick, ms per tick,
+    and a profiled 2048-token prefill and 4-slot decode step, one call in
+    one trace each, with the MoE's device time read from the
+    ``record_function("moe")`` ranges of that trace and the kernels the
+    trace lost. (b) ``zamba2-1.2b``, ``musicgen-large`` and
+    ``llama-3.2-vision-11b`` at full width and depth in the engine
+    (requests submitted directly, the engine's zero ``cond``; prompts of
+    2048 and 64 tokens, 16 new tokens each): the responses complete, the
+    launch counts stay 0, each request's tokens equal the token-by-token
+    loop's at the engine's 4 rows; then at 7, 2 and 5 layers in float32
+    (two shared-block applications, cross-attention in every layer, one
+    cross block) with a seeded random ``cond`` and the vlm's cross gates
+    drawn nonzero, the card's prefill logits, and one decode step from
+    the card's prefill cache, within ``DENSE_CPU_BOUND`` of the CPU's
+    (the decode from each side's own cache is reported: the hybrid's
+    conv tails are bf16 in the cache, so ~1e-7 float32 differences round
+    one bf16 step apart there). Prints prefill and decode rates, peak GB
+    and a profiled 2048-token prefill and decode step.
 
 Prints the kernel JSON line and the card line before the last line, which
 is ``{"ok": true, "device": {...}}``.
@@ -161,6 +198,7 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -1330,8 +1368,10 @@ def _prefill_s(params, cfg, prompts, impl="auto", reps: int = 3) -> dict:
     each prompt, synchronised, by prompt length."""
     import torch
     from repro_torch.models import model as M
+    from repro_torch.serve.engine import zero_cond
 
     dev = params["embed"]["table"].device
+    cond = zero_cond(cfg, dev)
     out = {}
     for p in prompts:
         toks = torch.as_tensor(p, device=dev)[None].long()
@@ -1339,7 +1379,8 @@ def _prefill_s(params, cfg, prompts, impl="auto", reps: int = 3) -> dict:
         for _ in range(reps):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            M.prefill(params, cfg, toks, max_len=SERVE_MAX_LEN, impl=impl)
+            M.prefill(params, cfg, toks, cond=cond, max_len=SERVE_MAX_LEN,
+                      impl=impl)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
         out[len(p)] = statistics.median(times)
@@ -1856,17 +1897,14 @@ def _greedy_loop(cfg, params, prompt, n: int, rows: int) -> list:
     count, and bf16 rounds the two apart."""
     import torch
     from repro_torch.models import model as M
+    from repro_torch.serve.engine import splice_slot, zero_cond
 
     dev = params["embed"]["table"].device
     logits, one = M.prefill(params, cfg,
                             torch.as_tensor(prompt, device=dev)[None].long(),
-                            max_len=SERVE_MAX_LEN)
+                            cond=zero_cond(cfg, dev), max_len=SERVE_MAX_LEN)
     cache = M.init_cache(cfg, rows, SERVE_MAX_LEN, dev)
-    for key, dst in cache.items():
-        if key == "kv_pos":
-            dst[0] = one[key][0]
-        else:
-            dst[:, 0] = one[key][:, 0]
+    splice_slot(cache, one, 0, rows)
     out = [int(torch.argmax(logits[0]))]
     tok = torch.zeros((rows, 1), dtype=torch.long, device=dev)
     pos = torch.zeros(rows, dtype=torch.int32, device=dev)
@@ -1874,6 +1912,38 @@ def _greedy_loop(cfg, params, prompt, n: int, rows: int) -> list:
         tok[0, 0], pos[0] = out[-1], len(prompt) + i
         logits, cache = M.decode_step(params, cfg, cache, tok, pos)
         out.append(int(torch.argmax(logits[0])))
+    return out
+
+
+def _serving_gates(tag: str, cfg, params, prompts, run: dict,
+                   launches: dict, max_new: int, *, bus: bool,
+                   loops) -> dict:
+    """The serving gates of phases 11 and 12 on a :func:`_serve_timed` run
+    (``launches`` read just after it): (1) every response with its
+    ``max_new`` tokens, and with ``bus`` every message acked; no kernel of
+    the port launched; (2) with ``bus``, the tokens equal a direct
+    ``engine.submit`` run's; (3) each request in ``loops`` equal to the
+    token-by-token loop at the engine's width. Returns the loops' tokens
+    by request."""
+    lengths = {i: len(t) for i, t in run["tokens"].items()}
+    if lengths != {i: max_new for i in range(len(prompts))} or (bus and (
+            run["acked"] != len(prompts) or run["outstanding"])):
+        raise AssertionError(f"{tag}: responses {lengths}, "
+                             f"{run.get('acked')} acked, "
+                             f"{run.get('outstanding')} outstanding")
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: the serving path launched {launches}")
+    if bus and _serve_timed(cfg, params, prompts, max_new)["tokens"] != \
+            run["tokens"]:
+        raise AssertionError(f"{tag}: the bus run's tokens differ from a "
+                             "direct engine run's")
+    out = {}
+    for i in loops:
+        out[i] = _greedy_loop(cfg, params, prompts[i], max_new, SERVE_SLOTS)
+        if out[i] != run["tokens"][i]:
+            raise AssertionError(f"{tag}: the {len(prompts[i])}-token "
+                                 "request's tokens differ from the "
+                                 "prefill + decode_step loop's")
     return out
 
 
@@ -1892,8 +1962,7 @@ def _dense_cpu_checks(params, cfg, seed: int) -> dict:
     from repro_torch.models.params import tree_map
 
     n = DENSE_CHECK_LAYERS
-    sub = {"embed": params["embed"], "final_norm": params["final_norm"],
-           "layers": tree_map(lambda a: a[:n], params["layers"])}
+    sub = _cut_params(params, cfg, n)
     rng = np.random.default_rng(seed + 11)
     prompt = rng.integers(0, cfg.vocab_size, size=(1, DENSE_CHECK_PROMPT))
     tok = rng.integers(0, cfg.vocab_size, size=(1, 1))
@@ -2000,26 +2069,10 @@ def run_dense_serving(seed: int, card: str) -> dict:
     run = _serve_timed(cfg, params, prompts, bus=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = _read_launches()
-    # gate 1: every response, each with its tokens, every message acked
-    lengths = {i: len(t) for i, t in run["tokens"].items()}
-    if lengths != {i: SERVE_NEW for i in range(len(prompts))} or \
-            run["acked"] != len(prompts) or run["outstanding"]:
-        raise AssertionError(f"phase 11: responses {lengths}, {run['acked']} "
-                             f"acked, {run['outstanding']} outstanding")
-    if any(launches.values()):
-        raise AssertionError(f"phase 11: the dense path launched {launches}")
-    # gate 2: the bus run's tokens are a direct engine.submit run's
-    if _serve_timed(cfg, params, prompts)["tokens"] != run["tokens"]:
-        raise AssertionError("phase 11: the bus run's tokens differ from a "
-                             "direct engine run's")
-    # gate 3: the shortest request against the token-by-token loop at the
-    # engine's width; the loop at one row is reported beside it
+    # gates 1–3; the loop at one row is reported beside gate 3's
     last = len(prompts) - 1
-    loop = _greedy_loop(cfg, params, prompts[last], SERVE_NEW, SERVE_SLOTS)
-    if loop != run["tokens"][last]:
-        raise AssertionError(f"phase 11: the {len(prompts[last])}-token "
-                             "request's tokens differ from the "
-                             "prefill + decode_step loop's")
+    loop = _serving_gates("phase 11", cfg, params, prompts, run, launches,
+                          SERVE_NEW, bus=True, loops=[last])[last]
     solo = _greedy_loop(cfg, params, prompts[last], SERVE_NEW, 1)
     solo_part = next((j for j, (a, b) in enumerate(zip(solo, loop))
                       if a != b), None)
@@ -2068,6 +2121,488 @@ def run_dense_serving(seed: int, card: str) -> dict:
         prefill_s=pre_s, **rates, profiles=profiles,
         loop_prompt=len(prompts[last]), one_row_loop_parts_at=solo_part,
         checks=checks)
+
+
+# phase 12: the moe, hybrid, vlm and audio families
+MOE_ARCH = "mixtral-8x7b"
+# the whole model is 46.7 B parameters (93.4 GB of bf16): half its depth
+# fits one 80 GB card beside the caches
+MOE_LAYERS = 16
+# gates 5 and 6 at the full width in float32 at this depth, on a prompt
+# whose CPU run stays short (2 expert layers are 11.3 GB of float32)
+MOE_CHECK_LAYERS = 2
+MOE_CHECK_PROMPT = 512
+# a router assignment may differ between the card and the CPU only where
+# the CPU's probability margin between the k-th and (k+1)-th expert is
+# below this: 10x the largest card-vs-CPU logit error measured at this cut
+# (1.06e-6 relative, phase 12a on an H100). The logits are gated all the
+# same, against the CPU's run with the card's routing forced
+ROUTER_FLIP_LIMIT = 1e-5
+# 12b: each arch at full width and depth served on these prompts; its
+# card-vs-CPU check at a depth that exercises each structure: the
+# hybrid's second shared-block application (7 layers: groups [6, 1]),
+# one vlm cross block (5 layers), audio's cross-attention in every layer
+FAMILY_ARCHS = {"zamba2-1.2b": 7, "musicgen-large": 2,
+                "llama-3.2-vision-11b": 5}
+FAMILY_PROMPTS = (2048, 64)
+FAMILY_NEW = 16
+FAMILY_CHECK_PROMPT = 256
+
+
+def _profile_range(fn, wall_ms: float, name: str | None = None) -> dict:
+    """One call of ``fn`` in one trace (``PROFILE_PAD_S`` of idle time at
+    each end): its kernels and their device time beside the call's
+    unprofiled host wall time ``wall_ms`` (the ratio is the busy share),
+    and with ``name`` ``range_ms``, the device time of the kernels
+    launched inside the ``torch.profiler.record_function(name)`` ranges of
+    that same trace (``range_share`` of the device time). ``trace_lost``:
+    the kernel launches the trace holds on the host side less the kernels
+    it holds, and ``lost_at_ms`` when the launches that no kernel shares a
+    correlation id with were made, in ms after the call's first launch
+    (the first ten; None where those are not ``trace_lost`` many)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    # device-side rows: kernels, copies and fills, and the range's own
+    # annotation (a span, not work: left out of the sums)
+    device = [e for e in events if e.device_type == cuda and e.name != name]
+    kernels = [e for e in device
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    launches = [e for e in events
+                if e.device_type != cuda and "LaunchKernel" in e.name]
+    ran = {e.id for e in kernels}
+    lost = [e for e in launches if e.id not in ran]
+    first = min(e.time_range.start for e in launches)
+    device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    range_ms = sum(e.device_time_total for e in events
+                   if e.device_type != cuda and e.name == name) / 1e3
+    ranges = sum(1 for e in events if e.device_type != cuda
+                 and e.name == name)
+    top = {}
+    for e in kernels:
+        row = top.setdefault(e.name[:90], [0.0, 0])
+        row[0] += e.time_range.elapsed_us() / 1e3
+        row[1] += 1
+    ranged = dict(range=name, ranges=ranges, range_ms=range_ms,
+                  range_share=range_ms / device_ms) if name else {}
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms, kernels=len(kernels),
+                launched=len(launches),
+                trace_lost=len(launches) - len(kernels),
+                lost_at_ms=sorted((e.time_range.start - first) / 1e3
+                                  for e in lost)[:10]
+                if len(lost) == len(launches) - len(kernels) else None,
+                **ranged,
+                top=[dict(name=k, ms=ms, calls=c) for k, (ms, c) in
+                     sorted(top.items(), key=lambda r: -r[1][0])[:6]])
+
+
+def _cut_params(params, cfg, n: int) -> dict:
+    """The first ``n`` layers of a parameter tree (views): the stacked
+    layers, the vlm's cross blocks before them; the rest as it is."""
+    from repro_torch.models.params import tree_map
+
+    sub = dict(params, layers=tree_map(lambda a: a[:n], params["layers"]))
+    if "cross" in params:
+        nx = n // cfg.cross_attn_every
+        sub["cross"] = tree_map(lambda a: a[:nx], params["cross"])
+    return sub
+
+
+@contextlib.contextmanager
+def _router_tap(replay=None):
+    """``models/moe.py::router_logits`` patched for one run: the float32
+    router logits of each call (the prefill's layers, then the decode
+    step's) are kept on the host, in call order. With ``replay`` (such a
+    list from another run) each call returns that run's logits in place of
+    its own, so the run takes the other run's routing; it still keeps its
+    own."""
+    from repro_torch.models import moe
+
+    real, seen = moe.router_logits, []
+
+    def tap(p, x):
+        own = real(p, x)
+        seen.append(own.cpu())
+        if replay is None:
+            return own
+        forced = replay[len(seen) - 1]
+        if forced.shape != own.shape:
+            raise AssertionError(f"router call {len(seen) - 1}: replayed "
+                                 f"{tuple(forced.shape)}, the run's "
+                                 f"{tuple(own.shape)}")
+        return forced.to(own.device)
+
+    moe.router_logits = tap
+    try:
+        yield seen
+    finally:
+        moe.router_logits = real
+
+
+def _route_flips(card, host, k: int) -> list:
+    """Where the card's top-k expert sets differ from the CPU's, router
+    call by router call: (call, token, the CPU's probability margin between
+    its k-th and (k+1)-th expert)."""
+    import torch
+    from repro_torch.models import moe
+
+    flips = []
+    for call, (l_card, l_cpu) in enumerate(zip(card, host)):
+        _, e_card = moe.top_k(torch.softmax(l_card, -1), k)
+        p_cpu, e_cpu = moe.top_k(torch.softmax(l_cpu, -1), k + 1)
+        same = (torch.sort(e_card, -1).values ==
+                torch.sort(e_cpu[..., :k], -1).values).all(-1)
+        for b, t in (~same).nonzero().tolist():
+            flips.append((call, t, float(p_cpu[b, t, k - 1]
+                                         - p_cpu[b, t, k])))
+    return flips
+
+
+def _router_stats(card, host, k: int) -> dict:
+    """The CPU's smallest k-th to (k+1)-th probability margin and the
+    largest card-vs-CPU router probability difference, over all calls."""
+    import torch
+    from repro_torch.models import moe
+
+    margin, diff = math.inf, 0.0
+    for l_card, l_cpu in zip(card, host):
+        p_cpu = torch.softmax(l_cpu, -1)
+        top = moe.top_k(p_cpu, k + 1)[0]
+        margin = min(margin, float((top[..., k - 1] - top[..., k]).min()))
+        diff = max(diff, float((torch.softmax(l_card, -1) - p_cpu)
+                               .abs().max()))
+    return dict(router_min_margin=margin, router_prob_max_abs=diff)
+
+
+def _moe_cpu_checks(params, cfg, seed: int) -> dict:
+    """Gates 5 and 6 of phase 12a at the full width cut to
+    MOE_CHECK_LAYERS layers in float32 (the first layers of the served
+    parameters): each router call's top-k assignments on the card against
+    the CPU's, then the card's prefill logits and one decode step against
+    the CPU's plain run of the same parameters, and the ``+kv8`` run's
+    decode logits against the float cache's on the card. Where an
+    assignment differs, the CPU runs again with the card's routing forced:
+    its own router there may part from the card's only under
+    ROUTER_FLIP_LIMIT of margin, and the logits are held against that
+    run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+
+    n, S = MOE_CHECK_LAYERS, MOE_CHECK_PROMPT
+    sub = _cut_params(params, cfg, n)
+    rng = np.random.default_rng(seed + 12)
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, S))
+    tok = rng.integers(0, cfg.vocab_size, size=(1, 1))
+
+    def cut(c):
+        return dataclasses.replace(c, num_layers=n, dtype=torch.float32,
+                                   name=f"{c.name}-{n}L+f32")
+
+    def run(p, c, dev, replay=None):
+        t0 = time.perf_counter()
+        with _router_tap(replay) as router:
+            logits, cache = M.prefill(p, c, torch.as_tensor(prompt,
+                                                            device=dev),
+                                      max_len=S + 8)
+            step, cache = M.decode_step(
+                p, c, cache, torch.as_tensor(tok, device=dev),
+                torch.full((1,), S, dtype=torch.int32, device=dev))
+        if len(router) != 2 * n:
+            raise AssertionError(f"phase 12: {len(router)} router calls, "
+                                 f"expected {2 * n}")
+        return dict(prefill=logits.cpu(), decode=step.cpu(), router=router,
+                    kv=cache["k"].dtype, s=time.perf_counter() - t0)
+
+    cfg32 = cut(cfg)
+    card = run(sub, cfg32, torch.device("cuda"))
+    host_params = tree_map(lambda a: a.cpu(), sub)
+    host = run(host_params, cfg32, torch.device("cpu"))
+    kv8 = run(sub, cut(get_config(MOE_ARCH + "+kv8")), torch.device("cuda"))
+    K = cfg.num_experts_per_tok
+    flips = _route_flips(card["router"], host["router"], K)
+    ref, forced_flips = host, []
+    if flips:
+        ref = run(host_params, cfg32, torch.device("cpu"),
+                  replay=card["router"])
+        forced_flips = _route_flips(card["router"], ref["router"], K)
+    for call, t, margin in forced_flips or flips:
+        where = (f"prefill layer {call}" if call < n
+                 else f"decode layer {call - n}")
+        _log(f"phase 12: {where} token {t}: the card's top-{K} experts "
+             f"differ from the CPU's, router margin {margin:.3e}")
+    for call, t, margin in forced_flips:
+        if not margin < ROUTER_FLIP_LIMIT:
+            raise AssertionError(
+                f"phase 12: router call {call} token {t}: top-{K} experts "
+                f"differ where the CPU's router margin is {margin:.3e} "
+                f"(limit {ROUTER_FLIP_LIMIT:.1e})")
+    rel = {}
+    for what in ("prefill", "decode"):
+        got = card[what]
+        rel[what] = r = _rel(got, ref[what])
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"phase 12: the card's {what} logits are "
+                                 "not finite")
+        if not r < DENSE_CPU_BOUND:
+            raise AssertionError(
+                f"phase 12: the card's {what} logits lie {r:.3e} from the "
+                f"CPU's{' with the routing forced' if flips else ''} "
+                f"(bound {DENSE_CPU_BOUND})")
+    if kv8["kv"] != torch.int8:
+        raise AssertionError(f"phase 12: the +kv8 cache is {kv8['kv']}")
+    kv8_err = float((kv8["decode"] - card["decode"]).abs().max())
+    if not kv8_err < KV8_BOUND:
+        raise AssertionError(f"phase 12: the int8 cache's decode logits lie "
+                             f"{kv8_err:.4f} from the float cache's (bound "
+                             f"{KV8_BOUND})")
+    assigned = sum(int(r.numel() // r.shape[-1]) * K for r in card["router"])
+    return dict(layers=n, prompt=S, assignments=assigned,
+                route_flips=len(flips), forced_routing=bool(flips),
+                forced_route_flips=len(forced_flips),
+                router_flip_limit=ROUTER_FLIP_LIMIT,
+                **_router_stats(card["router"], ref["router"], K),
+                cpu_rel=rel, cpu_rel_bound=DENSE_CPU_BOUND,
+                kv8_decode_max_abs=kv8_err, kv8_bound=KV8_BOUND,
+                logit_max_abs=float(host["decode"].abs().max()),
+                card_s=card["s"], cpu_s=host["s"])
+
+
+def _free() -> None:
+    """Release the card's memory that a finished phase left cached."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_moe_serving(seed: int, card: str) -> dict:
+    """Phase 12a: mixtral-8x7b at full width (MOE_LAYERS of its 32 layers)
+    served through the bus."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_defs
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS,
+                              name=f"{full.name}-{MOE_LAYERS}L")
+    n_full, n_cut = M.param_count(full), M.param_count(cfg)
+    _log(f"phase 12: {full.name} cut to {MOE_LAYERS} of {full.num_layers} "
+         f"layers for one 80 GB card: {n_cut:,} of {n_full:,} parameters "
+         f"({2 * n_cut / 1e9:.2f} of {2 * n_full / 1e9:.2f} GB in bf16), "
+         f"{M.active_param_count(cfg):,} active a token")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_defs(params))
+    if n_params != n_cut:
+        raise AssertionError(f"phase 12: {n_params} parameters, expected "
+                             f"{n_cut}")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPTS]
+
+    _serve_timed(cfg, params, prompts, 2, bus=True)  # warm-up
+    gc.collect()
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_timed(cfg, params, prompts, bus=True)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = _read_launches()
+    last = len(prompts) - 1
+    _serving_gates("phase 12", cfg, params, prompts, run, launches,
+                   SERVE_NEW, bus=True, loops=[last])
+    checks = _moe_cpu_checks(params, cfg, seed)
+
+    pre_s = _prefill_s(params, cfg, prompts)
+    rates = _decode_rates(run, pre_s)
+    tokens = torch.as_tensor(prompts[0], device=dev)[None].long()
+    cache = M.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
+    step = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.full((SERVE_SLOTS,), 100, dtype=torch.int32, device=dev)
+    profiles = {
+        "prefill_2048": _profile_range(
+            lambda: M.prefill(params, cfg, tokens, max_len=SERVE_MAX_LEN),
+            1e3 * pre_s[len(prompts[0])], "moe"),
+        "decode_step": _profile_range(
+            lambda: M.decode_step(params, cfg, cache, step, pos),
+            rates["ms_per_tick"], "moe")}
+    for name, prof in profiles.items():
+        if prof["ranges"] != cfg.num_layers:
+            raise AssertionError(f"phase 12: the profiled {name} holds "
+                                 f"{prof['ranges']} moe ranges, expected "
+                                 f"{cfg.num_layers}")
+    del cache, params
+    _free()
+    return dict(
+        card=card, arch=cfg.name, layers=f"{MOE_LAYERS} of {full.num_layers}",
+        params=n_params, params_full=n_full,
+        active_params=M.active_param_count(cfg), init_s=init_s,
+        launches=launches, peak_gb=peak_gb, wall_s=run["wall_s"],
+        submit_s=run["submit_s"], responses=len(run["tokens"]),
+        prefill_tok_per_s={n: n / pre_s[n] for n in SERVE_PROMPTS},
+        prefill_s=pre_s, **rates, profiles=profiles, checks=checks)
+
+
+def _family_cpu_checks(params, cfg, n: int, seed: int) -> dict:
+    """Phase 12b's card-vs-CPU check: the arch cut to its first ``n``
+    layers in float32, a seeded random ``cond`` (vlm and audio) and the
+    vlm's cross gates drawn nonzero (at zero they silence the block); the
+    card's prefill logits and one decode step against the CPU's plain run
+    of the same parameters, within DENSE_CPU_BOUND."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_defs, tree_map
+
+    dev = torch.device("cuda")
+    sub = _cut_params(params, cfg, n)
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    cond = None
+    if cfg.family in ("vlm", "audio"):
+        cond = torch.randn((1, cfg.n_cross_tokens, cfg.d_model),
+                           generator=gen, device=dev)
+    if "cross" in sub:
+        gate = sub["cross"]["xattn"]["gate"]
+        sub["cross"] = dict(sub["cross"], xattn=dict(
+            sub["cross"]["xattn"],
+            gate=torch.randn(gate.shape, generator=gen, device=dev)))
+    c32 = dataclasses.replace(cfg, num_layers=n, dtype=torch.float32,
+                              name=f"{cfg.name}-{n}L+f32")
+    rng = np.random.default_rng(seed + 12)
+    S = FAMILY_CHECK_PROMPT
+    prompt = rng.integers(0, cfg.vocab_size, size=(1, S))
+    tok = rng.integers(0, cfg.vocab_size, size=(1, 1))
+
+    def decode(p, cache, d):
+        step, _ = M.decode_step(
+            p, c32, cache, torch.as_tensor(tok, device=d),
+            torch.full((1,), S, dtype=torch.int32, device=d))
+        return step.cpu()
+
+    def run(p, d, cnd):
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(p, c32, torch.as_tensor(prompt, device=d),
+                                  cond=cnd, max_len=S + 8)
+        # a host copy before the decode step writes into the cache
+        kept = tree_map(lambda a: a.to("cpu", copy=True), cache)
+        return (logits.cpu(), decode(p, cache, d), kept,
+                time.perf_counter() - t0)
+
+    cpu = torch.device("cpu")
+    host_params = tree_map(lambda a: a.cpu(), sub)
+    on_card = run(sub, dev, cond)
+    host = run(host_params, cpu, None if cond is None else cond.cpu())
+    # the CPU's decode step from the card's prefill cache: the hybrid's
+    # conv tails are stored in bf16 (the reference's layout), where
+    # float32 values ~1e-7 apart can round one bf16 step apart, and a step
+    # from each side's own cache then parts by ~1e-4 (reported, not gated)
+    from_card = decode(host_params, tree_map(lambda a: a.clone(),
+                                             on_card[2]), cpu)
+    own_rel = _rel(on_card[1], host[1])
+    flipped = sum(int((a != b).sum()) for a, b in zip(
+        (t for _, t in tree_defs(on_card[2])),
+        (t for _, t in tree_defs(host[2]))) if a.dtype == torch.bfloat16)
+    rel = {}
+    for what, got, want in (("prefill", on_card[0], host[0]),
+                            ("decode", on_card[1], from_card)):
+        rel[what] = r = _rel(got, want)
+        if not (bool(torch.isfinite(got).all()) and r < DENSE_CPU_BOUND):
+            raise AssertionError(f"phase 12 {cfg.name}: the card's {what} "
+                                 f"logits lie {r:.3e} from the CPU's "
+                                 f"(bound {DENSE_CPU_BOUND})")
+    if cfg.family == "hybrid":
+        structure = dict(shared_blocks=len(M.zamba_groups(c32)))
+    else:
+        structure = dict(cross_blocks=len(sub["cross"]["norm_x"])
+                         if "cross" in sub else n)
+    return dict(layers=n, prompt=S, **structure, cpu_rel=rel,
+                cpu_rel_bound=DENSE_CPU_BOUND,
+                decode_own_cache_rel=own_rel, bf16_cache_entries_apart=flipped,
+                logit_max_abs=float(host[1].abs().max()),
+                card_s=on_card[3], cpu_s=host[3])
+
+
+def run_family_serving(arch: str, check_layers: int, seed: int,
+                       card: str) -> dict:
+    """Phase 12b: one of the hybrid, vlm and audio archs at full width and
+    depth in the engine, requests submitted directly."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_defs
+    from repro_torch.serve.engine import zero_cond
+
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in tree_defs(params))
+    if n_params != M.param_count(cfg):
+        raise AssertionError(f"phase 12 {arch}: {n_params} parameters, "
+                             f"expected {M.param_count(cfg)}")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in FAMILY_PROMPTS]
+    _serve_timed(cfg, params, prompts, 2)  # warm-up
+    gc.collect()
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_timed(cfg, params, prompts, FAMILY_NEW)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = _read_launches()
+    _serving_gates(f"phase 12 {arch}", cfg, params, prompts, run, launches,
+                   FAMILY_NEW, bus=False, loops=range(len(prompts)))
+    checks = _family_cpu_checks(params, cfg, check_layers, seed)
+    pre_s = _prefill_s(params, cfg, prompts)
+    rates = _decode_rates(run, pre_s)
+    # one profiled 2048-token prefill and 4-slot decode step
+    tokens = torch.as_tensor(prompts[0], device=dev)[None].long()
+    cond = zero_cond(cfg, dev)
+    cache = M.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
+    step = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.full((SERVE_SLOTS,), 100, dtype=torch.int32, device=dev)
+    profiles = {
+        "prefill_2048": _profile_range(
+            lambda: M.prefill(params, cfg, tokens, cond=cond,
+                              max_len=SERVE_MAX_LEN),
+            1e3 * pre_s[len(prompts[0])]),
+        "decode_step": _profile_range(
+            lambda: M.decode_step(params, cfg, cache, step, pos),
+            rates["ms_per_tick"])}
+    del cache, params
+    _free()
+    return dict(arch=arch, family=cfg.family, params=n_params, init_s=init_s,
+                launches=launches, peak_gb=peak_gb, wall_s=run["wall_s"],
+                prefill_tok_per_s={n: n / pre_s[n] for n in FAMILY_PROMPTS},
+                prefill_s=pre_s, **rates, profiles=profiles, checks=checks)
 
 
 def main() -> int:
@@ -2158,6 +2693,16 @@ def main() -> int:
     # 11. the dense family served through the bus
     dense = run_dense_serving(args.seed, card)
     _log("dense serving: " + json.dumps(dense))
+    _free()
+
+    # 12. the moe, hybrid, vlm and audio families
+    t12 = time.perf_counter()
+    moe = run_moe_serving(args.seed, card)
+    _log("moe serving: " + json.dumps(moe))
+    for arch, depth in FAMILY_ARCHS.items():
+        fam = run_family_serving(arch, depth, args.seed, card)
+        _log(f"{fam['family']} serving: " + json.dumps(fam))
+    _log(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,

@@ -2,10 +2,14 @@
 
 ``get_config(name)`` returns the full published config; ``--arch <id>`` in
 the launchers resolves through here. Each arch module exports ``CONFIG``.
-Only the families the port runs are registered: the dense archs
-(``gemma-2b``, ``phi4-mini-3.8b``, ``minitron-8b``,
-``command-r-plus-104b``) and ``rwkv6-3b`` (``ssm``). The moe, hybrid,
-vlm and audio archs come with their families (ROADMAP A9).
+Every arch of ``repro.configs`` is registered, in its order.
+
+One departure from ``repro`` (ROADMAP F12): ``+kv8`` is refused for the
+``ssm`` and ``hybrid`` families. The ssm family has no KV cache, so the
+variant would change nothing; the hybrid's shared-block cache has no
+int8 scales in the reference, whose decode then casts bf16 K/V to int8 by
+truncation (its decode logits part from the full forward by more than
+their own size).
 """
 from __future__ import annotations
 
@@ -19,8 +23,16 @@ _ARCHS = {
     "minitron-8b": "minitron_8b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "command-r-plus-104b": "command_r_plus_104b",
+    "musicgen-large": "musicgen_large",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "mixtral-8x22b": "mixtral_8x22b",
     "rwkv6-3b": "rwkv6_3b",
 }
+
+# families without a scaled int8 KV cache, for which ``+kv8`` is refused
+_NO_KV8 = ("ssm", "hybrid")
 
 
 def list_archs() -> list[str]:
@@ -30,8 +42,9 @@ def list_archs() -> list[str]:
 def get_config(name: str) -> ModelConfig:
     """Resolve an arch id; ``<arch>-smoke`` selects
     :meth:`ModelConfig.reduced`, and ``+`` suffixes select runtime
-    variants: ``+kv8`` an int8-quantized serving KV cache, ``+ac<N>`` an
-    attention KV chunk of N."""
+    variants: ``+kv8`` an int8-quantized serving KV cache (refused with a
+    ``ValueError`` for the ssm and hybrid families, ROADMAP F12),
+    ``+ac<N>`` an attention KV chunk of N."""
     parts = name.split("+")
     name, mods = parts[0], parts[1:]
     if name.endswith("-smoke"):
@@ -43,6 +56,12 @@ def get_config(name: str) -> ModelConfig:
             f"repro_torch.configs.{_ARCHS[name]}").CONFIG
     for m in mods:
         if m == "kv8":
+            if cfg.family in _NO_KV8:
+                raise ValueError(
+                    f"{cfg.name}+kv8: the {cfg.family} family has no scaled "
+                    "int8 KV cache (ssm keeps no KV cache; the hybrid's "
+                    "shared-block cache would be truncated to int8 without "
+                    "scales), so +kv8 is refused")
             cfg = dataclasses.replace(cfg, kv_cache_dtype="int8",
                                       name=cfg.name + "+kv8")
         elif m.startswith("ac"):  # attention KV-chunk override, e.g. +ac512

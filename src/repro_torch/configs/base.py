@@ -3,13 +3,13 @@
 A copy of ``repro.configs.base`` with ``dtype`` a torch dtype. One
 ``ModelConfig`` per registered architecture lives in
 ``repro_torch/configs/<id>.py``; the shared shape grid lives here. The
-config holds the reference's fields that the ported families (dense, ssm)
-and the shape grid read, each with the reference's default, so
-:meth:`ModelConfig.reduced` equals the reference's field by field. The
-MoE, Mamba2 and cross-attention fields come with their families,
-``attn_bias`` with the first family that builds attention biases (no
-registered arch sets it), and the layer scan's ``scan_layers`` / ``remat``
-with ``train/`` (ROADMAP A9; the port walks layers in a Python loop).
+config holds every field of the reference that a ported family (dense,
+moe, ssm, hybrid, vlm, audio) or the shape grid reads, each at the
+reference's position with its default, so :meth:`ModelConfig.reduced`
+equals the reference's field by field. ``attn_bias`` comes with the first
+family that builds attention biases (no registered arch sets it), and the
+layer scan's ``scan_layers`` / ``remat`` with ``train/`` (ROADMAP A9.2;
+the port walks layers in a Python loop).
 """
 from __future__ import annotations
 
@@ -42,10 +42,27 @@ class ModelConfig:
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d_model)
     sliding_window: int = 0  # 0 = full attention
 
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+
+    # SSM (Mamba2 / zamba2 hybrid)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_head_dim: int = 64
+    shared_attn_every: int = 0  # zamba2: shared attn+MLP block cadence
+
     # RWKV6
     rwkv: bool = False
     rwkv_lora_dim: int = 32
     rwkv_decay_lora_dim: int = 64
+
+    # cross-attention (vlm / audio conditioning)
+    cross_attn_every: int = 0  # every Nth layer has cross-attn (vlm)
+    cross_attn_all_layers: bool = False  # musicgen: every layer cross-attends
+    n_cross_tokens: int = 0  # stub modality frontend token count
 
     # numerics / runtime
     dtype: Any = torch.bfloat16  # compute dtype (parameters are bf16)
@@ -57,6 +74,14 @@ class ModelConfig:
 
     # ---- derived helpers -------------------------------------------------
     @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
+    @property
     def sub_quadratic(self) -> bool:
         """Can this arch decode at 500k context without O(S) full-attn KV scoring?"""
         return self.rwkv or self.family in ("ssm", "hybrid") or self.sliding_window > 0
@@ -67,20 +92,26 @@ class ModelConfig:
         return True
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test scale config of the same family (runs on 1 CPU): the
-        reference's ``reduced()`` over the fields the port has."""
+        """Smoke-test scale config of the same family (runs on 1 CPU)."""
         kv = min(self.num_kv_heads, 2) if self.num_kv_heads else 0
         heads = 4 if self.num_heads else 0
         return dataclasses.replace(
             self,
             name=self.name + "-smoke",
-            num_layers=2,
+            num_layers=4 if (self.shared_attn_every or self.cross_attn_every) else 2,
             d_model=64,
             num_heads=heads,
             num_kv_heads=kv if self.num_kv_heads > 1 else min(self.num_kv_heads, 1),
             head_dim=16,
             d_ff=128,
             vocab_size=256,
+            num_experts=4 if self.num_experts else 0,
+            num_experts_per_tok=min(self.num_experts_per_tok, 2),
+            ssm_state=16 if self.ssm_state else 0,
+            ssm_head_dim=16 if self.ssm_state else 64,
+            shared_attn_every=2 if self.shared_attn_every else 0,
+            cross_attn_every=2 if self.cross_attn_every else 0,
+            n_cross_tokens=8 if self.n_cross_tokens else 0,
             rwkv_lora_dim=8,
             rwkv_decay_lora_dim=8,
             sliding_window=min(self.sliding_window, 32) if self.sliding_window else 0,

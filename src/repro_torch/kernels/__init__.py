@@ -6,5 +6,5 @@ checks, launch counts) and ``ref.py`` the plain versions.
 """
 from repro_torch.kernels.ops import (dct8x8_quant,  # noqa: F401
                                      downsample2x2, entropy_decode,
-                                     jpeg_inverse, jpeg_transform, rgb2ycbcr,
-                                     wkv_chunk)
+                                     idct8x8_dequant, jpeg_inverse,
+                                     jpeg_transform, rgb2ycbcr, wkv_chunk)

@@ -32,7 +32,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
 __all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
-           "dct8x8_quant", "entropy_decode", "ENTROPY_THREADS",
+           "dct8x8_quant", "idct8x8_dequant", "entropy_decode", "ENTROPY_THREADS",
            "wkv_chunk", "wkv_scratch_floats", "wkv_scratch_views"]
 
 
@@ -260,6 +260,14 @@ def dct8x8_quant(plane: torch.Tensor, qtable=None,
 
 
 dct8x8_quant.launches = 0
+
+
+def idct8x8_dequant(coef: torch.Tensor, qtable) -> torch.Tensor:
+    """Decoder-side inverse of :func:`dct8x8_quant`: (H, W) quantized
+    coefficients → (H, W) float32 level-shifted samples. Plain PyTorch on
+    any device (``repro``'s counterpart is jnp only, no kernel); the tests
+    and the decoder use it."""
+    return ref.idct8x8_dequant_ref(coef, qtable)
 
 
 #: threads (subsequences) of the ``entropy_decode`` kernel's CTA, one CTA

@@ -60,7 +60,8 @@ __all__ = [
     "JPEG_LUMA_Q", "JPEG_CHROMA_Q", "ZIGZAG", "dct_matrix",
     "ycbcr_polynomials", "ycbcr_inverse_polynomials", "quant_tables",
     "rgb2ycbcr_ref", "dct8x8_quant_ref", "jpeg_quotient_ref",
-    "jpeg_transform_ref", "idct_dequant_blocks", "jpeg_inverse_ref",
+    "jpeg_transform_ref", "idct8x8_dequant_ref", "idct_dequant_blocks",
+    "jpeg_inverse_ref",
     "downsample2x2_ref", "downsample2x2_q_ref", "entropy_decode_ref",
     "entropy_decode_subseq_ref", "ERR_INVALID", "ERR_RUN", "ERR_TRUNC",
     "wkv_chunked_ref", "wkv_chunk_passes_ref",
@@ -220,6 +221,16 @@ def jpeg_transform_ref(tiles, qluma=None, qchroma=None) -> torch.Tensor:
     """
     return torch.round(jpeg_quotient_ref(tiles, qluma, qchroma)).to(
         torch.int32)
+
+
+def idct8x8_dequant_ref(coef, qtable) -> torch.Tensor:
+    """(H, W) quantized coefficients, blocks in place → (H, W) float32
+    level-shifted samples: the inverse of :func:`dct8x8_quant_ref` (the
+    decoder path and PSNR tests), in :func:`idct_dequant_blocks`'s fixed
+    order. ``qtable`` is the (8, 8) table the plane was quantized with."""
+    C = torch.from_numpy(dct_matrix()).to(coef.device)
+    q = torch.as_tensor(np.array(qtable, np.float32)).to(coef.device)
+    return _unblocks(idct_dequant_blocks(_blocks(coef), q, C))
 
 
 def idct_dequant_blocks(xb, q, C) -> torch.Tensor:

@@ -11,8 +11,10 @@ this launcher runs one replica behind ``PubSubFrontend`` on a
 tokens drawn from ``numpy.random.default_rng(0)``) and collects the
 answers from the response topic through a client subscription. The
 parameters are random, from a ``torch.Generator`` seeded with 0 on the
-device. Prints responses, tokens, tokens/s and tokens per decode tick;
-exits 0 when every request was answered.
+device. Every arch of ``repro_torch.configs`` resolves, and the vlm and
+audio families are conditioned on zeros, as the engine does. Prints
+responses, tokens, tokens/s and tokens per decode tick; exits 0 when
+every request was answered.
 """
 import argparse
 import sys

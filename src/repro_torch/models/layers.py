@@ -9,8 +9,9 @@ speed work. The dense family's whole path is here: RMS norm (with gemma's
 ``1 + w``), partial RoPE, blocked attention (MHA, and GQA/MQA on the
 grouped path), the decode step's attention against a bf16 or int8 KV
 cache written in place, the four MLPs, the embedding (tied table,
-``sqrt(d_model)`` scale), the head and the chunked cross-entropy.
-Cross-attention comes with the vlm and audio families (ROADMAP A9).
+``sqrt(d_model)`` scale), the head and the chunked cross-entropy; and the
+vlm and audio families' cross-attention (non-causal, no RoPE, over a fixed
+K/V set, scaled by ``tanh(gate)`` where the block has a gate).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ __all__ = [
     "attn_project_kv",
     "attn_out",
     "self_attention",
+    "cross_attention",
     "quantize_kv",
     "decode_self_attention",
     "write_kv_pos",
@@ -150,14 +152,17 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
 # --------------------------------------------------------------------------
 # attention block
 # --------------------------------------------------------------------------
-def attn_defs(cfg) -> dict:
+def attn_defs(cfg, *, cross: bool = False) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    d = {
         "wq": ParamDef((D, H, hd), ("embed", "heads", "head_dim")),
         "wk": ParamDef((D, KV, hd), ("embed", "heads", "head_dim")),
         "wv": ParamDef((D, KV, hd), ("embed", "heads", "head_dim")),
         "wo": ParamDef((H, hd, D), ("heads", "head_dim", "embed")),
     }
+    if cross:  # a float32 scalar; tanh(0) = 0 shuts the block at init
+        d["gate"] = ParamDef((), (), init="zeros", dtype=torch.float32)
+    return d
 
 
 def attn_project_q(p, cfg, x, positions, *, rope: bool = True):
@@ -188,6 +193,24 @@ def self_attention(p, cfg, x, positions, *, window: int = 0):
     ctx = blocked_attention(q, k, v, pos, pos, causal=True, window=window,
                             chunk=cfg.attn_chunk)
     return attn_out(p, cfg, ctx), (k, v)
+
+
+def cross_attention(p, cfg, x, kv_cached):
+    """Non-causal attention over a fixed (precomputed) K/V set, in chunks
+    of ``min(attn_chunk, n)`` keys; a ``gate`` in ``p`` scales the output
+    by ``tanh(gate)``. x: (B, S, D); kv_cached: ((B, n, KV, hd) × 2)."""
+    B, S = x.shape[:2]
+    q = attn_project_q(p, cfg, x, None, rope=False)
+    k, v = kv_cached
+    n = k.shape[1]
+    zeros_q = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    zeros_kv = torch.zeros((B, n), dtype=torch.int32, device=x.device)
+    ctx = blocked_attention(q, k, v, zeros_q, zeros_kv, causal=False,
+                            chunk=min(cfg.attn_chunk, n))
+    out = attn_out(p, cfg, ctx)
+    if "gate" in p:
+        out = torch.tanh(p["gate"]).to(out.dtype) * out
+    return out
 
 
 def quantize_kv(x, axis: int = -1):

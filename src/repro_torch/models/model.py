@@ -1,27 +1,35 @@
-"""Model assembly: the ``dense`` and ``ssm`` families of
+"""Model assembly for the architecture zoo, a copy of
 ``repro.models.model``.
 
 * ``model_defs(cfg)``                — ParamDef tree (stacked layers)
 * ``init_params(cfg, generator, device)``
-* ``forward(params, cfg, tokens, mode="train"|"prefill")`` — full
-  sequence; ``mode="prefill"`` also returns the per-layer K/V stacks
-  (dense) or states (ssm)
-* ``lm_loss(params, cfg, batch)``    — next-token cross-entropy
+* ``forward(params, cfg, tokens, cond=..., mode="train"|"prefill")`` —
+  full sequence; ``mode="prefill"`` also returns the per-layer K/V stacks
+  and states
+* ``lm_loss(params, cfg, batch)``    — next-token cross-entropy (+ MoE aux)
 * ``cache_defs`` / ``init_cache``     — the decode state
 * ``decode_step(params, cfg, cache, token, pos)`` — one serving step
-* ``prefill(params, cfg, tokens, max_len=...)``   — prompt → cache
+* ``prefill(params, cfg, tokens, cond=..., max_len=...)`` — prompt → cache
 
 Families:
-  dense — [norm→attn, norm→mlp], or the Cohere-style parallel block
-  ssm   — rwkv6: time-mix + channel-mix
+  dense  — [norm→attn, norm→mlp], or the Cohere-style parallel block
+  moe    — attention + top-k expert FFN (SWA rolling KV)
+  audio  — musicgen: self-attn + cross-attn (text cond) + mlp, every layer
+  vlm    — llama-3.2-vision: a cross-attn block before every
+           ``cross_attn_every``-th layer (``num_layers // cross_attn_every``
+           blocks)
+  hybrid — zamba2: Mamba2 backbone, a weight-shared attn+mlp block before
+           each group of ``shared_attn_every`` Mamba layers
+  ssm    — rwkv6: time-mix + channel-mix
 
 Layers are stored stacked (a leading ``layers`` axis on every leaf) as in
 the reference and walked with a Python loop in place of ``lax.scan``.
 ``impl`` (``"auto"`` or ``"ref"``) goes to ``kernels.ops.wkv_chunk``, the
 ssm prefill's one kernel; a function with its signature takes its place
-(:func:`rwkv6.rwkv_block`). The dense family runs no kernel of its own.
-The moe, hybrid, vlm and audio families raise ``NotImplementedError``:
-they come with ROADMAP A9.
+(:func:`rwkv6.rwkv_block`). The other families run no kernel of their own
+(``repro`` computes them outside any Pallas kernel). ``cond`` (B,
+n_cross_tokens, d_model) is the vlm and audio families' conditioning
+stream.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import dataclasses
 import torch
 
 from repro_torch.models import layers as lyr
+from repro_torch.models import mamba2 as mb
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.params import (ParamDef, count_params, materialize,
                                        tree_map)
@@ -39,6 +49,7 @@ __all__ = [
     "init_params",
     "param_count",
     "active_param_count",
+    "zamba_groups",
     "forward",
     "lm_loss",
     "cache_defs",
@@ -46,16 +57,6 @@ __all__ = [
     "decode_step",
     "prefill",
 ]
-
-_PORTED = ("dense", "ssm")
-
-
-def _check_family(cfg) -> None:
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; the port "
-            f"runs the {' and '.join(_PORTED)} families, the others come "
-            "with ROADMAP A9")
 
 
 def _stack(defs, n: int):
@@ -81,12 +82,57 @@ def _dense_layer_defs(cfg) -> dict:
     return d
 
 
+def _moe_layer_defs(cfg) -> dict:
+    return {"norm1": _norm_def(cfg), "attn": lyr.attn_defs(cfg),
+            "norm2": _norm_def(cfg), "moe": moe_mod.moe_defs(cfg)}
+
+
+def _audio_layer_defs(cfg) -> dict:
+    return {"norm1": _norm_def(cfg), "attn": lyr.attn_defs(cfg),
+            "norm_x": _norm_def(cfg), "xattn": lyr.attn_defs(cfg),
+            "norm2": _norm_def(cfg), "mlp": lyr.mlp_defs(cfg)}
+
+
+def _cross_block_defs(cfg) -> dict:
+    return {"norm_x": _norm_def(cfg), "xattn": lyr.attn_defs(cfg, cross=True)}
+
+
+def zamba_groups(cfg) -> list[int]:
+    """Mamba-layer counts between shared-block applications."""
+    every, L, out = cfg.shared_attn_every, cfg.num_layers, []
+    while L > 0:
+        out.append(min(every, L))
+        L -= every
+    return out
+
+
+def _n_cross(cfg) -> int:
+    """The vlm family's cross blocks (one before every ``cross_attn_every``-th
+    layer, from layer 0)."""
+    return cfg.num_layers // cfg.cross_attn_every
+
+
 def model_defs(cfg) -> dict:
-    _check_family(cfg)
-    layer = _dense_layer_defs(cfg) if cfg.family == "dense" else \
-        rwkv.rwkv_defs(cfg)
-    return {"embed": lyr.embed_defs(cfg), "final_norm": _norm_def(cfg),
-            "layers": _stack(layer, cfg.num_layers)}
+    d = {"embed": lyr.embed_defs(cfg), "final_norm": _norm_def(cfg)}
+    fam, L = cfg.family, cfg.num_layers
+    if fam == "dense":
+        d["layers"] = _stack(_dense_layer_defs(cfg), L)
+    elif fam == "moe":
+        d["layers"] = _stack(_moe_layer_defs(cfg), L)
+    elif fam == "audio":
+        d["layers"] = _stack(_audio_layer_defs(cfg), L)
+    elif fam == "vlm":
+        d["layers"] = _stack(_dense_layer_defs(cfg), L)
+        d["cross"] = _stack(_cross_block_defs(cfg), _n_cross(cfg))
+    elif fam == "hybrid":
+        d["layers"] = _stack(mb.mamba2_defs(cfg), L)
+        d["shared"] = {"norm1": _norm_def(cfg), "attn": lyr.attn_defs(cfg),
+                       "norm2": _norm_def(cfg), "mlp": lyr.mlp_defs(cfg)}
+    elif fam == "ssm":
+        d["layers"] = _stack(rwkv.rwkv_defs(cfg), L)
+    else:
+        raise ValueError(f"unknown family {fam!r}")
+    return d
 
 
 def init_params(cfg, generator: torch.Generator, device="cuda"):
@@ -100,13 +146,17 @@ def param_count(cfg) -> int:
 
 
 def active_param_count(cfg) -> int:
-    """Params touched per token: all of them in the dense and ssm families
-    (the moe family's top-k of E experts comes with it)."""
-    return param_count(cfg)
+    """Params touched per token (MoE: top-k of E experts)."""
+    n = param_count(cfg)
+    if cfg.num_experts:
+        expert = 3 * cfg.d_model * cfg.d_ff  # wg, wu, wd
+        n -= cfg.num_layers * (cfg.num_experts - cfg.num_experts_per_tok) \
+            * expert
+    return n
 
 
 # --------------------------------------------------------------------------
-# full-sequence forward
+# layer bodies (full sequence)
 # --------------------------------------------------------------------------
 def _apply_dense(pl, cfg, x, positions):
     h = lyr.rms_norm(x, pl["norm1"], cfg.norm_eps)
@@ -121,48 +171,137 @@ def _apply_dense(pl, cfg, x, positions):
     return x, kv
 
 
-def forward(params, cfg, tokens, *, mode: str = "train",
+def _apply_moe(pl, cfg, x, positions):
+    h = lyr.rms_norm(x, pl["norm1"], cfg.norm_eps)
+    attn_out, kv = lyr.self_attention(pl["attn"], cfg, h, positions,
+                                      window=cfg.sliding_window)
+    x = x + attn_out
+    h2 = lyr.rms_norm(x, pl["norm2"], cfg.norm_eps)
+    moe_out, aux = moe_mod.moe_apply(pl["moe"], cfg, h2)
+    return x + moe_out, kv, aux
+
+
+def _apply_cross(pl, cfg, x, cond):
+    """Cross-attention sub-block; K/V computed from the conditioning stream."""
+    h = lyr.rms_norm(x, pl["norm_x"], cfg.norm_eps)
+    k, v = lyr.attn_project_kv(pl["xattn"], cfg, cond, None, rope=False)
+    out = lyr.cross_attention(pl["xattn"], cfg, h, (k, v))
+    return x + out, (k, v)
+
+
+def _apply_audio(pl, cfg, x, positions, cond):
+    h = lyr.rms_norm(x, pl["norm1"], cfg.norm_eps)
+    attn_out, kv = lyr.self_attention(pl["attn"], cfg, h, positions)
+    x = x + attn_out
+    x, xkv = _apply_cross(pl, cfg, x, cond)
+    h2 = lyr.rms_norm(x, pl["norm2"], cfg.norm_eps)
+    x = x + lyr.mlp_apply(pl["mlp"], cfg, h2)
+    return x, kv, xkv
+
+
+def _apply_shared(ps, cfg, x, positions):
+    """Zamba2 weight-shared attention+MLP block."""
+    h = lyr.rms_norm(x, ps["norm1"], cfg.norm_eps)
+    attn_out, kv = lyr.self_attention(ps["attn"], cfg, h, positions)
+    x = x + attn_out
+    h2 = lyr.rms_norm(x, ps["norm2"], cfg.norm_eps)
+    return x + lyr.mlp_apply(ps["mlp"], cfg, h2), kv
+
+
+def _stacked(items):
+    """A list of per-layer trees → one tree of stacked leaves."""
+    return tree_map(lambda *xs: torch.stack(xs), *items)
+
+
+# --------------------------------------------------------------------------
+# full-sequence forward
+# --------------------------------------------------------------------------
+def forward(params, cfg, tokens, *, cond=None, mode: str = "train",
             impl: str = "auto"):
-    """tokens: (B, S) int. Returns (hidden (B, S, D), aux_loss, cache_parts)
-    where cache_parts holds, when ``mode == "prefill"``, the per-layer K/V
-    (``k``, ``v``: (L, B, S, KV, hd)) of the dense family or the states
-    (``rwkv``) of the ssm family, stacked; else {}. (The conditioning
-    stream ``cond`` of the vlm and audio families comes with them.)
+    """tokens: (B, S) int; cond: (B, n_cross_tokens, D) for vlm/audio.
+
+    Returns (hidden (B, S, D), aux_loss, cache_parts) where cache_parts
+    holds, when ``mode == "prefill"``, the per-layer stacks a decode cache
+    is built from (``k``/``v`` (L, B, S, KV, hd), ``cross_k``/``cross_v``,
+    ``shared_k``/``shared_v``, the ``mamba`` or ``rwkv`` states); else {}.
+    ``aux_loss`` sums the moe layers' load-balance losses (0 elsewhere).
     """
-    _check_family(cfg)
     B, S = tokens.shape
     want = mode == "prefill"
+    fam = cfg.family
+    if fam in ("vlm", "audio") and cond is None:
+        raise ValueError(f"{cfg.name}: the {fam} family needs cond "
+                         "(B, n_cross_tokens, d_model)")
     x = lyr.embed_apply(params["embed"], cfg, tokens)
-    parts = {}
-    if cfg.family == "dense":
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
-        ks, vs = [], []
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(
+        B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    parts: dict = {}
+    kvs, xkvs, states = [], [], []
+
+    if fam in ("dense", "vlm", "moe", "audio"):
+        every = cfg.cross_attn_every if fam == "vlm" else 0
         for i in range(cfg.num_layers):
-            x, (k, v) = _apply_dense(_layer(params["layers"], i), cfg, x,
-                                     positions)
+            pl = _layer(params["layers"], i)
+            if every and i % every == 0 and i // every < _n_cross(cfg):
+                x, xkv = _apply_cross(_layer(params["cross"], i // every),
+                                      cfg, x, cond)
+                if want:
+                    xkvs.append(xkv)
+            if fam == "moe":
+                x, kv, a = _apply_moe(pl, cfg, x, positions)
+                aux = aux + a
+            elif fam == "audio":
+                x, kv, xkv = _apply_audio(pl, cfg, x, positions, cond)
+                if want:
+                    xkvs.append(xkv)
+            else:
+                x, kv = _apply_dense(pl, cfg, x, positions)
             if want:
-                ks.append(k)
-                vs.append(v)
+                kvs.append(kv)
+    elif fam == "hybrid":
+        start, skvs = 0, []
+        for cnt in zamba_groups(cfg):
+            x, kv = _apply_shared(params["shared"], cfg, x, positions)
+            if want:
+                skvs.append(kv)
+            for i in range(start, start + cnt):
+                pl = _layer(params["layers"], i)
+                h = lyr.rms_norm(x, pl["norm"], cfg.norm_eps)
+                out, st = mb.mamba2_apply(pl, cfg, h, return_state=want)
+                x = x + out
+                if want:
+                    states.append(st)
+            start += cnt
         if want:
-            parts["k"], parts["v"] = torch.stack(ks), torch.stack(vs)
-    else:
-        states = []
+            parts["shared_k"] = torch.stack([k for k, _ in skvs])
+            parts["shared_v"] = torch.stack([v for _, v in skvs])
+            parts["mamba"] = _stacked(states)
+    elif fam == "ssm":
         for i in range(cfg.num_layers):
             x, st = rwkv.rwkv_block(_layer(params["layers"], i), cfg, x,
                                     impl=impl)
             if want:
                 states.append(st)
         if want:
-            parts["rwkv"] = tree_map(lambda *xs: torch.stack(xs), *states)
+            parts["rwkv"] = _stacked(states)
+    else:
+        raise ValueError(f"unknown family {fam!r}")
+
+    if kvs:
+        parts["k"] = torch.stack([k for k, _ in kvs])
+        parts["v"] = torch.stack([v for _, v in kvs])
+    if xkvs:
+        parts["cross_k"] = torch.stack([k for k, _ in xkvs])
+        parts["cross_v"] = torch.stack([v for _, v in xkvs])
     x = lyr.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), parts
+    return x, aux, parts
 
 
 def lm_loss(params, cfg, batch, *, impl: str = "auto"):
-    """batch: {"tokens": (B, S), "labels": (B, S)}."""
-    x, aux, _ = forward(params, cfg, batch["tokens"], mode="train",
-                        impl=impl)
+    """batch: {"tokens": (B, S), "labels": (B, S)[, "cond": (B, n, D)]}."""
+    x, aux, _ = forward(params, cfg, batch["tokens"], cond=batch.get("cond"),
+                        mode="train", impl=impl)
     loss = lyr.softmax_xent_chunked(params["embed"], cfg, x, batch["labels"])
     return loss + 0.01 * aux
 
@@ -174,8 +313,8 @@ def _kv_int8(cfg) -> bool:
     return cfg.kv_cache_dtype == "int8"
 
 
-def _kv_cache_def(cfg, n_layers, batch, W):
-    dtype = torch.int8 if _kv_int8(cfg) else cfg.dtype
+def _kv_cache_def(cfg, n_layers, batch, W, *, quantizable: bool = True):
+    dtype = torch.int8 if (quantizable and _kv_int8(cfg)) else cfg.dtype
     return ParamDef((n_layers, batch, W, cfg.num_kv_heads, cfg.head_dim),
                     ("layers", "batch", "kvseq", "heads", "head_dim"),
                     dtype=dtype, init="zeros")
@@ -198,19 +337,38 @@ def cache_defs(cfg, batch: int, max_len: int) -> dict:
     """Decode-state ParamDef tree. ``max_len`` is the KV window the serving
     shape demands; SWA archs cap it at their window (rolling buffer). The
     ssm family's state does not grow with the sequence: ``max_len`` only
-    bounds the engine's positions there."""
-    _check_family(cfg)
-    L = cfg.num_layers
-    if cfg.family == "ssm":
-        return {"rwkv": _stack(rwkv.rwkv_state_defs(cfg, batch), L)}
+    bounds the engine's positions there. The cross K/V of vlm and audio
+    stay in the compute dtype under ``+kv8`` (small, computed once per
+    request); the hybrid's shared-block cache has no int8 form (ROADMAP
+    F12), so an int8 hybrid config is refused."""
+    fam, L = cfg.family, cfg.num_layers
     W = _window(cfg, max_len)
-    d = {"k": _kv_cache_def(cfg, L, batch, W),
-         "v": _kv_cache_def(cfg, L, batch, W),
-         "kv_pos": ParamDef((batch, W), ("batch", "kvseq"),
-                            dtype=torch.int32, init="unwritten")}
-    if _kv_int8(cfg):
-        d["k_scale"] = _kv_scale_def(cfg, L, batch, W)
-        d["v_scale"] = _kv_scale_def(cfg, L, batch, W)
+    kv_pos = ParamDef((batch, W), ("batch", "kvseq"), dtype=torch.int32,
+                      init="unwritten")
+    d: dict = {}
+    if fam in ("dense", "moe", "audio", "vlm"):
+        d["k"] = _kv_cache_def(cfg, L, batch, W)
+        d["v"] = _kv_cache_def(cfg, L, batch, W)
+        d["kv_pos"] = kv_pos
+        if _kv_int8(cfg):
+            d["k_scale"] = _kv_scale_def(cfg, L, batch, W)
+            d["v_scale"] = _kv_scale_def(cfg, L, batch, W)
+    if fam in ("audio", "vlm"):
+        nx = L if cfg.cross_attn_all_layers else _n_cross(cfg)
+        for side in ("cross_k", "cross_v"):
+            d[side] = _kv_cache_def(cfg, nx, batch, cfg.n_cross_tokens,
+                                    quantizable=False)
+    if fam == "hybrid":
+        if _kv_int8(cfg):
+            raise ValueError(f"{cfg.name}: the hybrid family has no scaled "
+                             "int8 KV cache (ROADMAP F12)")
+        d["mamba"] = _stack(mb.mamba2_state_defs(cfg, batch), L)
+        ns = len(zamba_groups(cfg))
+        d["shared_k"] = _kv_cache_def(cfg, ns, batch, W)
+        d["shared_v"] = _kv_cache_def(cfg, ns, batch, W)
+        d["kv_pos"] = kv_pos
+    if fam == "ssm":
+        d["rwkv"] = _stack(rwkv.rwkv_state_defs(cfg, batch), L)
     return d
 
 
@@ -222,53 +380,107 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
 # --------------------------------------------------------------------------
 # one-token decode
 # --------------------------------------------------------------------------
+def _store_states(store: dict, states: list) -> None:
+    """Write a list of per-layer state dicts into the stacked ``store``,
+    one stacked write a leaf, in place. A leaf whose step returns another
+    dtype than it is stored in (the reference's scan keeps the computed
+    dtype: bf16 token shifts or conv tails leave bf16 when the model runs
+    in float32) is replaced in ``store`` by the computed one."""
+    for key, buf in store.items():
+        new = [st[key] for st in states]
+        if buf.dtype == new[0].dtype:
+            torch.stack(new, out=buf)
+        else:
+            store[key] = torch.stack(new)
+
+
+def _decode_self(pl, cfg, x, cache, i: int, kv_pos, pos, window: int = 0):
+    """Self-attention of layer ``i`` against the K/V cache, written in
+    place."""
+    int8 = _kv_int8(cfg)
+    h = lyr.rms_norm(x, pl["norm1"], cfg.norm_eps)
+    a = lyr.decode_self_attention(
+        pl["attn"], cfg, h, cache["k"][i], cache["v"][i], kv_pos, pos,
+        window=window,
+        k_scale=cache["k_scale"][i] if int8 else None,
+        v_scale=cache["v_scale"][i] if int8 else None)[0]
+    return h, a
+
+
+def _cross_cached(pc, cfg, x, cache, j: int):
+    """Cross-attention sub-block ``pc`` against cross K/V ``j`` of the
+    cache, with its residual."""
+    h = lyr.rms_norm(x, pc["norm_x"], cfg.norm_eps)
+    return x + lyr.cross_attention(pc["xattn"], cfg, h,
+                                   (cache["cross_k"][j], cache["cross_v"][j]))
+
+
 def decode_step(params, cfg, cache, token, pos):
     """token: (B, 1) int; pos: (B,) int. Returns (logits (B, V), cache).
 
     The step writes its state into ``cache`` and returns that same dict:
-    the dense family's new K/V (and int8 scales) and ``kv_pos``, the ssm
-    family's states, each into its tensor in place (a copy of the KV cache
-    would move all of it every step). A caller that needs the old cache
-    clones it first. The one exception is a dtype the reference's scan
-    changes: an ssm model computing in float32 returns float32 token
-    shifts where the store is bf16, so on its first step those leaves are
+    new K/V (and int8 scales), ``kv_pos`` and the ssm and Mamba2 states,
+    each into its tensor in place (a copy of the KV cache would move all
+    of it every step). A caller that needs the old cache clones it first.
+    The one exception is a dtype the reference's scan changes: a model
+    computing in float32 returns float32 RWKV token shifts and Mamba2 conv
+    tails where the store is bf16, so on its first step those leaves are
     replaced in the dict by float32 ones and written in place from then on.
     """
-    _check_family(cfg)
+    fam, L = cfg.family, cfg.num_layers
     x = lyr.embed_apply(params["embed"], cfg, token)
-    if cfg.family == "dense":
-        win = cfg.sliding_window
-        kv_pos = lyr.write_kv_pos(cache["kv_pos"], pos, window=win)
-        int8 = _kv_int8(cfg)
-        for i in range(cfg.num_layers):
+    win = cfg.sliding_window
+    kv_pos = lyr.write_kv_pos(cache["kv_pos"], pos, window=win) \
+        if "kv_pos" in cache else None
+
+    if fam in ("dense", "moe", "vlm", "audio"):
+        every = cfg.cross_attn_every if fam == "vlm" else 0
+        for i in range(L):
             pl = _layer(params["layers"], i)
-            h = lyr.rms_norm(x, pl["norm1"], cfg.norm_eps)
-            a = lyr.decode_self_attention(
-                pl["attn"], cfg, h, cache["k"][i], cache["v"][i], kv_pos, pos,
-                window=win,
-                k_scale=cache["k_scale"][i] if int8 else None,
-                v_scale=cache["v_scale"][i] if int8 else None)[0]
-            if cfg.parallel_block:
+            if every and i % every == 0 and i // every < _n_cross(cfg):
+                x = _cross_cached(_layer(params["cross"], i // every), cfg,
+                                  x, cache, i // every)
+            h, a = _decode_self(pl, cfg, x, cache, i, kv_pos, pos,
+                                win if fam in ("dense", "moe") else 0)
+            if fam == "dense" and cfg.parallel_block:
                 x = x + a + lyr.mlp_apply(pl["mlp"], cfg, h)
+                continue
+            x = x + a
+            if fam == "audio":
+                x = _cross_cached(pl, cfg, x, cache, i)
+            h2 = lyr.rms_norm(x, pl["norm2"], cfg.norm_eps)
+            if fam == "moe":
+                x = x + moe_mod.moe_apply(pl["moe"], cfg, h2)[0]
             else:
-                x = x + a
-                h2 = lyr.rms_norm(x, pl["norm2"], cfg.norm_eps)
                 x = x + lyr.mlp_apply(pl["mlp"], cfg, h2)
-    else:
-        state, states = cache["rwkv"], []
-        for i in range(cfg.num_layers):
+    elif fam == "hybrid":
+        ps, start, states = params["shared"], 0, []
+        for g, cnt in enumerate(zamba_groups(cfg)):
+            h = lyr.rms_norm(x, ps["norm1"], cfg.norm_eps)
+            a = lyr.decode_self_attention(
+                ps["attn"], cfg, h, cache["shared_k"][g],
+                cache["shared_v"][g], kv_pos, pos)[0]
+            x = x + a
+            h2 = lyr.rms_norm(x, ps["norm2"], cfg.norm_eps)
+            x = x + lyr.mlp_apply(ps["mlp"], cfg, h2)
+            for i in range(start, start + cnt):
+                pl = _layer(params["layers"], i)
+                h = lyr.rms_norm(x, pl["norm"], cfg.norm_eps)
+                out, st = mb.mamba2_decode(pl, cfg, h,
+                                           _layer(cache["mamba"], i))
+                x = x + out
+                states.append(st)
+            start += cnt
+        _store_states(cache["mamba"], states)
+    elif fam == "ssm":
+        states = []
+        for i in range(L):
             x, st = rwkv.rwkv_block_decode(_layer(params["layers"], i), cfg,
-                                           x, _layer(state, i))
+                                           x, _layer(cache["rwkv"], i))
             states.append(st)
-        for key, buf in state.items():  # one stacked write a leaf
-            new = [st[key] for st in states]
-            # the states keep the dtype they were computed in, as the
-            # reference's scan does (the token shifts leave bf16 when the
-            # model runs in f32)
-            if buf.dtype == new[0].dtype:
-                torch.stack(new, out=buf)
-            else:
-                state[key] = torch.stack(new)
+        _store_states(cache["rwkv"], states)
+    else:
+        raise ValueError(f"unknown family {fam!r}")
     x = lyr.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = lyr.logits_apply(params["embed"], cfg, x)[:, 0]
     return logits, cache
@@ -277,23 +489,23 @@ def decode_step(params, cfg, cache, token, pos):
 # --------------------------------------------------------------------------
 # prefill → cache
 # --------------------------------------------------------------------------
-def prefill(params, cfg, tokens, *, max_len: int | None = None,
+def prefill(params, cfg, tokens, *, cond=None, max_len: int | None = None,
             impl: str = "auto"):
     """Run the full prompt and build a decode cache of size ``max_len``.
 
-    Returns (last_token_logits (B, V), cache). The dense cache holds the
-    last ``min(S, W)`` positions; under a sliding window shorter than the
-    prompt they lie in the rolling buffer's order (position p at slot
-    p % W), and with ``+kv8`` they are quantized as decode quantizes them.
+    Returns (last_token_logits (B, V), cache). The K/V caches (and the
+    hybrid's shared-block cache) hold the last ``min(S, W)`` positions;
+    under a sliding window shorter than the prompt they lie in the rolling
+    buffer's order (position p at slot p % W), and with ``+kv8`` the
+    self-attention K/V are quantized as decode quantizes them. The cross
+    K/V and the recurrent states are cast to their cache dtypes.
     """
     B, S = tokens.shape
     max_len = max_len or S
-    x, _, parts = forward(params, cfg, tokens, mode="prefill", impl=impl)
+    x, _, parts = forward(params, cfg, tokens, cond=cond, mode="prefill",
+                          impl=impl)
     cache = init_cache(cfg, B, max_len, x.device)
-    if cfg.family == "ssm":
-        cache["rwkv"] = tree_map(lambda dst, src: src.to(dst.dtype),
-                                 cache["rwkv"], parts["rwkv"])
-    else:
+    if "kv_pos" in cache:
         W = _window(cfg, max_len)
         keep = min(S, W)
         pos_tail = torch.arange(S - keep, S, dtype=torch.int32,
@@ -303,17 +515,26 @@ def prefill(params, cfg, tokens, *, max_len: int | None = None,
             # rolling buffer: slot of absolute position p is p % W
             order = torch.argsort(pos_tail % W)
             pos_tail = pos_tail[order]
-        for side in ("k", "v"):
+        for side in ("k", "v", "shared_k", "shared_v"):
+            if side not in cache:
+                continue
             # (L, B, S, KV, hd) → the last `keep` positions, slot-ordered
             src = parts[side][:, :, S - keep:]
             if order is not None:
                 src = src[:, :, order]
-            if _kv_int8(cfg):
+            if _kv_int8(cfg):  # only k and v: hybrids have no int8 cache
                 q, scale = lyr.quantize_kv(src)
                 cache[side][:, :, :keep] = q
                 cache[side + "_scale"][:, :, :keep] = scale
             else:
                 cache[side][:, :, :keep] = src.to(cache[side].dtype)
         cache["kv_pos"][:, :keep] = pos_tail[None]
+    for side in ("cross_k", "cross_v"):
+        if side in cache:
+            cache[side] = parts[side].to(cache[side].dtype)
+    for key in ("mamba", "rwkv"):
+        if key in cache:
+            cache[key] = tree_map(lambda dst, src: src.to(dst.dtype),
+                                  cache[key], parts[key])
     logits = lyr.logits_apply(params["embed"], cfg, x[:, -1:])[:, 0]
     return logits, cache

@@ -86,12 +86,20 @@ def materialize(defs, generator: torch.Generator, device,
     ``normal`` draws N(0, std²) in float32 from ``generator`` (which must
     live on ``device``) with std = ``scale`` or ``1/sqrt(fan_in)``, ``small``
     draws with std 0.02, ``zeros``/``ones`` fill and ``unwritten`` fills
-    with :data:`UNWRITTEN` (a KV cache's free slots); each leaf is then
-    cast to its dtype (or ``dtype_override``). The numbers differ from
+    with :data:`UNWRITTEN` (a KV cache's free slots); each draw is then
+    cast to the leaf's dtype (or ``dtype_override``). A stacked leaf (a
+    leading ``layers`` axis) is drawn one layer slice at a time into a
+    tensor of its final dtype, so a float32 draw of a whole stack (30 GB
+    for mixtral's 16-layer experts) never exists. The numbers differ from
     ``repro``'s ``jax.random`` draws for the same seed; the rules are the
     same.
     """
     device = torch.device(device)
+
+    def draw(shape, std: float) -> torch.Tensor:
+        arr = torch.randn(shape, generator=generator, dtype=torch.float32,
+                          device=device)
+        return arr.mul_(std)
 
     def make(d: ParamDef) -> torch.Tensor:
         dtype = dtype_override or d.dtype
@@ -104,9 +112,12 @@ def materialize(defs, generator: torch.Generator, device,
         std = d.scale if d.scale is not None else 1.0 / math.sqrt(max(_fan_in(d), 1))
         if d.init == "small":
             std = 0.02
-        arr = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                          device=device)
-        return arr.mul_(std).to(dtype)
+        if not (d.logical and d.logical[0] == "layers"):
+            return draw(d.shape, std).to(dtype)
+        out = torch.empty(d.shape, dtype=dtype, device=device)
+        for i in range(d.shape[0]):  # one layer's slice at a time
+            out[i] = draw(d.shape[1:], std)
+        return out
 
     out: dict = {}
     for path, d in tree_defs(defs):  # sorted order: draws are reproducible

@@ -31,9 +31,35 @@ from repro_torch.core.pubsub import Subscription
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_map
 
-__all__ = ["ContinuousBatchingEngine", "PubSubFrontend", "Request"]
+__all__ = ["ContinuousBatchingEngine", "PubSubFrontend", "Request",
+           "splice_slot", "zero_cond"]
 
 _ids = itertools.count(1)
+
+
+def zero_cond(cfg, device):
+    """The conditioning the engine feeds the vlm and audio families (the
+    reference's stub frontend): zeros of (1, n_cross_tokens, d_model) in
+    the compute dtype; None for the other families."""
+    if cfg.family not in ("vlm", "audio"):
+        return None
+    return torch.zeros((1, cfg.n_cross_tokens, cfg.d_model),
+                       dtype=cfg.dtype, device=device)
+
+
+def splice_slot(cache, one, b: int, slots: int) -> None:
+    """Write a batch-1 prefill cache ``one`` into slot ``b`` of the
+    ``slots``-slot ``cache``, in place, by the reference's two rules: a
+    layer-stacked leaf (L, B, ...) — the K/V (L, B, W, KV, hd), their int8
+    scales, the cross and shared K/V, the ssm and Mamba2 states — at
+    [:, b]; a per-slot leaf (B, ...) — kv_pos (B, W) — at [b]."""
+    def splice(dst, src):
+        if dst.dim() >= 2 and src.shape[1] == 1 and dst.shape[1] == slots:
+            dst[:, b] = src[:, 0].to(dst.dtype)
+        elif src.shape[0] == 1 and dst.shape[0] == slots:  # (B, ...)
+            dst[b] = src[0].to(dst.dtype)
+
+    tree_map(splice, cache, one)
 
 
 @dataclasses.dataclass
@@ -47,11 +73,14 @@ class Request:
 
 class ContinuousBatchingEngine:
     """Greedy decoding (argmax, the first index on ties, in
-    :meth:`_greedy`). ``impl`` goes to the ssm prefill's wkv
-    (:func:`repro_torch.models.model.prefill`)."""
+    :meth:`_greedy`); ``greedy`` is accepted and unread, as in the
+    reference. ``impl`` goes to the ssm prefill's wkv
+    (:func:`repro_torch.models.model.prefill`). The vlm and audio families
+    are conditioned on zeros (the reference's stub frontend)."""
 
     def __init__(self, cfg, params, *, batch_size: int = 4,
-                 max_len: int = 256, impl: str = "auto"):
+                 max_len: int = 256, greedy: bool = True,
+                 impl: str = "auto"):
         self.cfg = cfg
         self.params = params
         self.impl = impl
@@ -83,19 +112,9 @@ class ContinuousBatchingEngine:
         toks = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                device=self.device)[None].long()
         logits, cache1 = M.prefill(self.params, self.cfg, toks,
+                                   cond=zero_cond(self.cfg, self.device),
                                    max_len=self.max_len, impl=self.impl)
-
-        # splice the request's caches into slot b (in place), by the
-        # reference's two rules: a layer-stacked leaf (L, B, ...) — the
-        # K/V (L, B, W, KV, hd), their int8 scales, the ssm states — at
-        # [:, b]; a per-slot leaf (B, ...) — kv_pos (B, W) — at [b]
-        def splice(dst, src):
-            if dst.dim() >= 2 and src.shape[1] == 1 and dst.shape[1] == self.B:
-                dst[:, b] = src[:, 0].to(dst.dtype)
-            elif src.shape[0] == 1 and dst.shape[0] == self.B:  # (B, ...)
-                dst[b] = src[0].to(dst.dtype)
-
-        tree_map(splice, self.cache, cache1)
+        splice_slot(self.cache, cache1, b, self.B)
         tok = int(self._greedy(logits)[0])
         self.active[b] = req
         self.pos[b] = S

@@ -15,10 +15,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.wsi.formats.psv import write_psv
+# PSVReader and write_psv are re-exported for existing callers
+from repro_torch.wsi.formats.psv import PSVReader, write_psv  # noqa: F401
 from repro_torch.wsi.formats.tiff import write_tiff
 
-__all__ = ["SyntheticScanner"]
+__all__ = ["SyntheticScanner", "PSVReader", "write_psv"]
 
 
 class SyntheticScanner:

@@ -201,9 +201,16 @@ def test_get_config_resolves_smoke_and_rejects_variants():
     assert cfg == get_config("rwkv6-3b").reduced()
     assert (cfg.num_layers, cfg.d_model, cfg.vocab_size) == (2, 64, 256)
     # the reference's runtime variants resolve as the reference resolves
-    # them; an unknown variant or arch is refused by name
+    # them, except +kv8, which the port refuses for a family with no KV
+    # cache (ROADMAP F12); an unknown variant or arch is refused by name
     for name in ("rwkv6-3b+kv8", "rwkv6-3b+ac512", "rwkv6-3b-smoke+kv8"):
-        got, want = get_config(name), jax_get_config(name)
+        want = jax_get_config(name)
+        if "+kv8" in name:
+            assert want.kv_cache_dtype == "int8"
+            with pytest.raises(ValueError, match="ssm family"):
+                get_config(name)
+            continue
+        got = get_config(name)
         assert got.name == want.name
         assert (got.kv_cache_dtype, got.attn_chunk) == \
             (want.kv_cache_dtype, want.attn_chunk)
@@ -235,10 +242,23 @@ def test_prefill_takes_a_wkv_function_in_place_of_the_kernel(smoke):
 
 @pytest.mark.parametrize("family", ["moe", "hybrid", "vlm", "audio"])
 def test_other_families_name_the_roadmap_item(family):
-    cfg = get_config("rwkv6-3b-smoke")
+    """The other families are ported (ROADMAP A9.1): each family's
+    parameter tree equals repro's, leaf by leaf; an unknown family is
+    refused by name."""
     import dataclasses
-    with pytest.raises(NotImplementedError, match="A9"):
-        M.model_defs(dataclasses.replace(cfg, family=family))
+    arch = {"moe": "mixtral-8x7b", "hybrid": "zamba2-1.2b",
+            "vlm": "llama-3.2-vision-11b", "audio": "musicgen-large"}[family]
+    cfg, jcfg = get_config(arch + "-smoke"), jax_get_config(arch + "-smoke")
+    assert cfg.family == family
+    got = {path: (d.shape, d.init, d.scale)
+           for path, d in tree_defs(M.model_defs(cfg))}
+    flat = jax.tree_util.tree_flatten_with_path(
+        JM.model_defs(jcfg), is_leaf=lambda x: hasattr(x, "logical"))[0]
+    want = {tuple(k.key for k in path): (d.shape, d.init, d.scale)
+            for path, d in flat}
+    assert got == want
+    with pytest.raises(ValueError, match="unknown family 'mlp'"):
+        M.model_defs(dataclasses.replace(cfg, family="mlp"))
 
 
 def test_launch_serve_smoke_on_cpu(capsys):
