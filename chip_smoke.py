@@ -190,7 +190,44 @@ raises (exit code ≠ 0) on any failed check:
     (the decode from each side's own cache is reported: the hybrid's
     conv tails are bf16 in the cache, so ~1e-7 float32 differences round
     one bf16 step apart there). Prints prefill and decode rates, peak GB
-    and a profiled 2048-token prefill and decode step.
+    and a profiled 2048-token prefill and decode step;
+13. training on the card. (a) ``rwkv6-3b`` at full width and depth
+    (3,099,609,600 bf16 parameters from seed 0, ``remat="nothing"``)
+    trained by ``launch.train.run`` as ``python -m
+    repro_torch.launch.train --arch rwkv6-3b --steps 6 --batch 4 --seq
+    1024 --microbatches 2`` runs it: with the launch counts zeroed just
+    before, exactly 128 ``wkv_chunk`` launches a step (the forward and the
+    remat recompute of 32 layers, per microbatch; through
+    ``ops.WkvChunk``) and no other kernel of the port; the losses finite;
+    after step 1 the first moment (0.1 · clip scale · gradient) of ``u``,
+    ``wr``, ``wk``, ``wv``, ``w0`` and the decay LoRA, which the loss
+    reaches only through the wkv, nonzero in every layer. Then ``--steps
+    2 --compress --microbatches 1`` (64 launches a step; the ``int8_ef``
+    residual nonzero). Prints the losses, s/step (median of steps 2–6),
+    tokens/s, model FLOP/s (6·N·tokens; the recompute apart) and its share
+    of the card's dense bf16 peak, peak memory, and one more step of one
+    microbatch profiled (device time, busy share, the ``record_function``
+    ranges ``wkv_fwd``, ``wkv_bwd``, ``adamw`` and ``xent`` (the loss
+    head's forward) as shares of the device time, their counts gated,
+    and the main run's step worked out from it). (b) ``ops.wkv_chunk`` on
+    inputs that require grad at (2, 1024, 40, 64) from a random state:
+    one launch through ``WkvChunk``, output within ``WKV_BOUND`` of the
+    plain version's, its six gradients equal autograd's through the plain
+    version bit for bit; the kernel's output and state within
+    ``WKV_BOUND`` at both training shapes, each timed beside its bound;
+    and at 2 layers of the same width in float32 (the bf16 weights in
+    float32 leaves) one train step on the card against the CPU's: the
+    loss and every gradient, the card's AdamW on the CPU's gradients
+    against the CPU's AdamW, within the stated bounds (``TRAIN_CPU_*``),
+    and the full steps' parameters by tests/_torch_train.py's rule
+    (``TRAIN_PARAM_*``). (c) resume at that cut in bf16 (5.1 GB of state)
+    under ``torch.use_deterministic_algorithms``: 3 steps uninterrupted
+    against 2 steps, an ``AsyncCheckpointer`` save, a restore and 1 step,
+    equal bit for bit (or, where they are not, within the difference of
+    two uninterrupted runs); one train step of
+    each family's reduced config on the card against the CPU within
+    tests/_torch_train.py's bounds; one ``ElasticTrainer`` epoch on the
+    card with a worker killed mid-shard, every shard applied once.
 
 Prints the kernel JSON line and the card line before the last line, which
 is ``{"ok": true, "device": {...}}``.
@@ -1218,6 +1255,18 @@ def _wkv_inputs(shape, decay_max: float, gen):
     return r, k, v, logw, u, state
 
 
+def _wkv_bound(shape) -> tuple[float, str]:
+    """``wkv_chunk``'s bound at (B, S, H, K). Bytes: r, k, v, logw read and
+    out written once, u, the state in and out; operations: the least the
+    recurrence needs per token and head, 5 K^2 + 6 K: r . S (K^2
+    multiply-adds), S <- w S + k^T v (K^2 multiplies, K^2 multiply-adds),
+    the u bonus (r u k summed, times v added to the output: 5 K) and
+    exp(logw) (K)."""
+    B, S, H, K = shape
+    nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
+    return _bound(nbytes, B * S * H * (5.0 * K * K + 6.0 * K))
+
+
 def check_wkv_chunk(seed: int) -> dict:
     """Phase 8: wkv_chunk vs its plain version at the prefill shape and a
     tail shape, output and final state within WKV_BOUND."""
@@ -1258,16 +1307,6 @@ def check_wkv_chunk(seed: int) -> dict:
             del a, got, plain
             torch.cuda.empty_cache()
 
-    def bound(shape):
-        # bytes: r, k, v, logw read and out written once, u, the state in
-        # and out; operations: the least the recurrence needs per token and
-        # head, 5 K^2 + 6 K: r . S (K^2 multiply-adds), S <- w S + k^T v
-        # (K^2 multiplies, K^2 multiply-adds), the u bonus (r u k summed,
-        # times v added to the output: 5 K) and exp(logw) (K)
-        B, S, H, K = shape
-        nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
-        return _bound(nbytes, B * S * H * (5.0 * K * K + 6.0 * K))
-
     # each of the call's kernels at the main shape, by the profiler
     a = _wkv_inputs(main, 2.0, gen)
     passes_ms = {}
@@ -1281,7 +1320,7 @@ def check_wkv_chunk(seed: int) -> dict:
                              f"{sorted(passes_ms)}, expected "
                              f"{ops.WKV_KERNELS_PER_CALL}")
     del a
-    b_main, b_tail = bound(main), bound(tail)
+    b_main, b_tail = _wkv_bound(main), _wkv_bound(tail)
     return dict(
         name="wkv_chunk", route="cuda",
         source="src/repro_torch/kernels/csrc/wkv_chunk.cu",
@@ -2149,60 +2188,98 @@ FAMILY_NEW = 16
 FAMILY_CHECK_PROMPT = 256
 
 
-def _profile_range(fn, wall_ms: float, name: str | None = None) -> dict:
+def _profile_range(fn, wall_ms: float, *names: str,
+                   warm: bool = True) -> dict:
     """One call of ``fn`` in one trace (``PROFILE_PAD_S`` of idle time at
     each end): its kernels and their device time beside the call's
     unprofiled host wall time ``wall_ms`` (the ratio is the busy share),
-    and with ``name`` ``range_ms``, the device time of the kernels
-    launched inside the ``torch.profiler.record_function(name)`` ranges of
-    that same trace (``range_share`` of the device time). ``trace_lost``:
-    the kernel launches the trace holds on the host side less the kernels
-    it holds, and ``lost_at_ms`` when the launches that no kernel shares a
-    correlation id with were made, in ms after the call's first launch
-    (the first ten; None where those are not ``trace_lost`` many)."""
+    ``wkv_ms``, the kernels named ``WKV_KERNEL_MATCH``, and ``by_range``:
+    for each of ``names``, the number of
+    ``torch.profiler.record_function(name)`` ranges in that trace
+    (``ranges``), the device time and number of the kernels launched
+    inside them, on the range's thread and within its span (``range_ms``,
+    ``range_kernels``; a range in an autograd backward runs on the
+    engine's thread), and its share of the device time
+    (``range_share``). ``trace_lost``: the kernel launches the
+    trace holds on the host side less the kernels it holds, and
+    ``lost_at_ms`` when the launches that no kernel shares a correlation id
+    with were made, in ms after the call's first launch (the first ten;
+    None where those are not ``trace_lost`` many). Reads the trace's raw
+    events (``kineto_results``): building the profiler's event tree takes
+    minutes for a training step's ~200k kernels. ``warm=False`` skips the
+    unprofiled call before the trace (for a caller that has just run
+    ``fn``). ``trace_s`` and ``parse_s``: the host time of the traced call
+    (the profiler's start and stop included) and of reading its events."""
+    import bisect
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
+    t1 = time.perf_counter()
     cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    # device-side rows: kernels, copies and fills, and the range's own
-    # annotation (a span, not work: left out of the sums)
-    device = [e for e in events if e.device_type == cuda and e.name != name]
+    device, launches, spans = [], {}, {n: {} for n in names}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == cuda:
+            # kernels, copies and fills; the ranges' own device-side
+            # annotations are spans, not work: left out of the sums
+            if name not in names and not e.is_user_annotation():
+                device.append(e)
+        elif "LaunchKernel" in name:
+            launches[e.correlation_id()] = (e.start_thread_id(),
+                                            e.start_ns())
+        elif name in spans:
+            spans[name].setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns()))
     kernels = [e for e in device
-               if not e.name.startswith(("Memcpy", "Memset"))]
-    launches = [e for e in events
-                if e.device_type != cuda and "LaunchKernel" in e.name]
-    ran = {e.id for e in kernels}
-    lost = [e for e in launches if e.id not in ran]
-    first = min(e.time_range.start for e in launches)
-    device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    range_ms = sum(e.device_time_total for e in events
-                   if e.device_type != cuda and e.name == name) / 1e3
-    ranges = sum(1 for e in events if e.device_type != cuda
-                 and e.name == name)
-    top = {}
+               if not e.name().startswith(("Memcpy", "Memset"))]
+    ran = {e.correlation_id() for e in kernels}
+    lost = [t for c, (_, t) in launches.items() if c not in ran]
+    first = min(t for _, t in launches.values())
+    device_ms = sum(e.duration_ns() for e in device) / 1e6
+    for by_thread in spans.values():
+        for rows in by_thread.values():
+            rows.sort()
+    by_range = {n: dict(ranges=sum(map(len, spans[n].values())),
+                        range_ms=0.0, range_kernels=0) for n in names}
+    top, wkv = {}, [0.0, 0]
     for e in kernels:
-        row = top.setdefault(e.name[:90], [0.0, 0])
-        row[0] += e.time_range.elapsed_us() / 1e3
+        ms = e.duration_ns() / 1e6
+        row = top.setdefault(e.name()[:90], [0.0, 0])
+        row[0] += ms
         row[1] += 1
-    ranged = dict(range=name, ranges=ranges, range_ms=range_ms,
-                  range_share=range_ms / device_ms) if name else {}
+        if WKV_KERNEL_MATCH in e.name():
+            wkv[0] += ms
+            wkv[1] += 1
+        thread, t = launches.get(e.correlation_id(), (None, None))
+        for n in names:
+            rows = spans[n].get(thread)
+            if rows:
+                i = bisect.bisect_right(rows, (t, float("inf"))) - 1
+                if i >= 0 and rows[i][0] <= t <= rows[i][1]:
+                    by_range[n]["range_ms"] += ms
+                    by_range[n]["range_kernels"] += 1
+    for r in by_range.values():
+        r["range_share"] = r["range_ms"] / device_ms
+    n_launched = len(launches)
     return dict(wall_ms=wall_ms, device_ms=device_ms,
+                trace_s=t1 - t0, parse_s=time.perf_counter() - t1,
                 busy_share=device_ms / wall_ms, kernels=len(kernels),
-                launched=len(launches),
-                trace_lost=len(launches) - len(kernels),
-                lost_at_ms=sorted((e.time_range.start - first) / 1e3
-                                  for e in lost)[:10]
-                if len(lost) == len(launches) - len(kernels) else None,
-                **ranged,
+                launched=n_launched,
+                trace_lost=n_launched - len(kernels),
+                lost_at_ms=sorted((t - first) / 1e6 for t in lost)[:10]
+                if len(lost) == n_launched - len(kernels) else None,
+                wkv_ms=wkv[0], wkv_kernels=wkv[1], by_range=by_range,
                 top=[dict(name=k, ms=ms, calls=c) for k, (ms, c) in
                      sorted(top.items(), key=lambda r: -r[1][0])[:6]])
 
@@ -2449,10 +2526,10 @@ def run_moe_serving(seed: int, card: str) -> dict:
             lambda: M.decode_step(params, cfg, cache, step, pos),
             rates["ms_per_tick"], "moe")}
     for name, prof in profiles.items():
-        if prof["ranges"] != cfg.num_layers:
+        if prof["by_range"]["moe"]["ranges"] != cfg.num_layers:
             raise AssertionError(f"phase 12: the profiled {name} holds "
-                                 f"{prof['ranges']} moe ranges, expected "
-                                 f"{cfg.num_layers}")
+                                 f"{prof['by_range']['moe']['ranges']} moe "
+                                 f"ranges, expected {cfg.num_layers}")
     del cache, params
     _free()
     return dict(
@@ -2605,6 +2682,608 @@ def run_family_serving(arch: str, check_layers: int, seed: int,
                 prefill_s=pre_s, **rates, profiles=profiles, checks=checks)
 
 
+# phase 13: training rwkv6-3b on the card
+TRAIN_ARGV = ["--arch", "rwkv6-3b", "--steps", "6", "--batch", "4", "--seq",
+              "1024", "--microbatches", "2", "--device", "cuda"]
+TRAIN_COMPRESS_ARGV = ["--arch", "rwkv6-3b", "--steps", "2", "--batch", "4",
+                       "--seq", "1024", "--microbatches", "1", "--compress",
+                       "--device", "cuda"]
+# the leaves whose gradient reaches them only through the wkv: r, k and v's
+# projections, the bonus u and the decay (w0 and its LoRA)
+TRAIN_WKV_LEAVES = ("u", "wr", "wk", "wv", "w0", "td_w1", "td_w2")
+TRAIN_RANGES = ("wkv_fwd", "wkv_bwd", "adamw", "xent")
+# NVIDIA H100 SXM data sheet: dense bf16 peak at the 700 W limit
+PEAK_BF16_OPS_PER_S = 989e12
+# 13b: the card's float32 train step vs the CPU's at a 2-layer cut, each
+# as max|Δ| / max|CPU leaf| (measured on an H100 at 700 W: the loss
+# 8.2e-8, the gradients 1.71e-4 at worst (the embedding; wr 1.35e-4, the
+# rest ≤ 1.3e-4); the parameters after AdamW on the same gradients
+# 2.3e-7, the zero-initialised leaves, whose largest is lr); the full
+# steps by tests/_torch_train.py's parameter rule (22,624 of 508,300,800
+# parameters beyond it). One sequence, (1, 512), parts by 1.5e-2, 1.3e-2
+# of it with the plain wkv on the card too (tools/train_cpu_gap.py;
+# ROADMAP F14)
+TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_BATCH = (2, 512)
+TRAIN_CPU_LOSS_BOUND = 1e-6
+TRAIN_CPU_GRAD_BOUND = 1e-3
+TRAIN_CPU_PARAM_BOUND = 1e-6
+TRAIN_PARAM_ATOL, TRAIN_PARAM_DIFF_SHARE = 1e-6, 1e-3
+# 13c: tests/_torch_train.py's bounds for a step of the reduced configs
+SMOKE_LOSS_REL = 1e-6
+SMOKE_GRAD_ATOL, SMOKE_SUMMED_ATOL = 2e-5, 2e-3
+SMOKE_SUMMED = ("embed/", "shared/")
+SMOKE_PARAM_ATOL, SMOKE_PARAM_DIFF_SHARE = 1e-6, 1e-3
+SMOKE_FAMILIES = ("gemma-2b", "mixtral-8x7b", "rwkv6-3b", "zamba2-1.2b",
+                  "llama-3.2-vision-11b", "musicgen-large")
+
+
+def _flat(tree) -> dict:
+    from repro_torch.models.params import tree_defs
+    return {"/".join(path): t for path, t in tree_defs(tree)}
+
+
+def _train_flops(params, cfg, tokens: int) -> dict:
+    """Model FLOPs of a step, 6·N·tokens, and those of the recompute apart:
+    ``remat="nothing"`` runs each layer's forward again (2·N_layers·tokens)
+    and the loss head recomputes each chunk's logits (2·N_head·tokens)."""
+    flat = _flat(params)
+    n = sum(t.numel() for t in flat.values())
+    n_layers = sum(t.numel() for k, t in flat.items()
+                   if k.startswith("layers/"))
+    head = flat.get("embed/head", flat["embed/table"]).numel()
+    return dict(params=n, tokens=tokens, model_flops=6.0 * n * tokens,
+                recompute_flops=2.0 * (n_layers + head) * tokens)
+
+
+def _train_main_run(card: str) -> tuple:
+    """13a's main run: ``launch.train.run`` as ``python -m
+    repro_torch.launch.train`` runs it with TRAIN_ARGV, the wkv launches
+    counted per step, the wkv-only leaves' first moments read after step
+    1. Returns the result dict and the trained run's output."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    per_step, zero, retries = [], {}, []
+
+    def on_step(i, state, m):
+        per_step.append(ops.wkv_chunk.launches - sum(per_step))
+        retries.append(torch.cuda.memory_stats().get("num_alloc_retries", 0))
+        if i == 1:  # m = 0.1 · clip scale · grad after the first step
+            mom = state["opt"]["m"]["layers"]
+            for leaf in TRAIN_WKV_LEAVES:
+                amax = mom[leaf].abs().flatten(1).amax(1).cpu()
+                zero[leaf] = [j for j, a in enumerate(amax.tolist())
+                              if not a > 0]
+
+    args = launch.parse_args(TRAIN_ARGV)
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = launch.run(args, on_step=on_step)
+    launches = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = out["cfg"]
+    want = 2 * cfg.num_layers * args.microbatches
+    if per_step != [want] * args.steps or launches != {
+            **{k: 0 for k in KERNELS}, "wkv_chunk": want * args.steps}:
+        raise AssertionError(f"phase 13: wkv_chunk launches per step "
+                             f"{per_step}, all {launches}; expected {want} "
+                             f"a step (forward and remat recompute, per "
+                             f"microbatch)")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"phase 13: losses {out['losses']}")
+    if any(zero.values()) or len(zero) != len(TRAIN_WKV_LEAVES):
+        raise AssertionError(f"phase 13: after step 1 the gradient is zero "
+                             f"in layers {zero} (leaves reached only "
+                             f"through the wkv)")
+    s_step = statistics.median(out["step_s"][1:])
+    tokens = args.batch * args.seq
+    flops = _train_flops(out["state"]["params"], cfg, tokens)
+    rates = dict(
+        s_per_step=s_step, tokens_per_s=tokens / s_step,
+        model_flops_per_s=flops["model_flops"] / s_step,
+        model_flops_share=flops["model_flops"] / s_step / PEAK_BF16_OPS_PER_S,
+        with_recompute_share=(flops["model_flops"] + flops["recompute_flops"])
+        / s_step / PEAK_BF16_OPS_PER_S, peak="bf16 dense 989 TFLOP/s, "
+        f"NVIDIA H100 SXM data sheet; this card: {card}")
+    result = dict(argv=TRAIN_ARGV, arch=cfg.name, remat=cfg.remat,
+                  losses=out["losses"], step_s=out["step_s"],
+                  launches_per_step=per_step[0],
+                  wkv_leaves_zero_layers=zero,
+                  peak_gb=peak_gb, alloc_retries=retries, **flops, **rates)
+    return result, out
+
+
+def _train_profile(out) -> dict:
+    """One step of one microbatch on 13a's trained state in one trace:
+    the main run's microbatch (batch / microbatches rows, the same
+    kernels), so the trace holds half a step's ~196k kernels; its device
+    time, busy share and the TRAIN_RANGES' shares (``xent``: the loss
+    head's forward; its backward and its recompute run outside the
+    range). ``per_step``: the main run's step from it, every range but
+    ``adamw`` (once a step) and the rest of the device time (the layers'
+    matmuls and the accumulation, per microbatch) taken ``microbatches``
+    times."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data import TokenDataset
+    from repro_torch.launch import train as launch
+    from repro_torch.train import make_train_step
+
+    args = launch.parse_args(TRAIN_ARGV)
+    k = args.microbatches
+    step_fn = make_train_step(out["cfg"], dataclasses.replace(
+        out["tc"], microbatches=1))
+    dev = torch.device("cuda")
+    b = TokenDataset(out["cfg"].vocab_size, args.seq, seed=0).shard_batch(
+        args.steps, args.batch // k)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    box = [out["state"]]
+
+    def one():
+        box[0] = step_fn(box[0], batch)[0]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    prof = _profile_range(one, wall_ms, *TRAIN_RANGES, warm=False)
+    out["state"] = box[0]
+    layers = out["cfg"].num_layers
+    want = dict(wkv_fwd=2 * layers, wkv_bwd=layers, adamw=1, xent=1)
+    got = {n: prof["by_range"][n]["ranges"] for n in want}
+    if got != want:
+        raise AssertionError(f"phase 13: the profiled step holds ranges "
+                             f"{got}, expected {want}")
+    adamw = prof["by_range"]["adamw"]["range_ms"]
+    step_ms = k * (prof["device_ms"] - adamw) + adamw
+    prof["per_step"] = dict(microbatches=k, device_ms=step_ms, shares={
+        n: (adamw if n == "adamw" else k * r["range_ms"]) / step_ms
+        for n, r in prof["by_range"].items()})
+    return prof
+
+
+def _train_compress_run() -> dict:
+    """13a's second run: TRAIN_COMPRESS_ARGV (int8 error feedback, one
+    microbatch); the residual must be nonzero."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    per_step = []
+    args = launch.parse_args(TRAIN_COMPRESS_ARGV)
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = launch.run(args, on_step=lambda i, st, m: per_step.append(
+        ops.wkv_chunk.launches - sum(per_step)))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = 2 * out["cfg"].num_layers
+    if per_step != [want] * args.steps:
+        raise AssertionError(f"phase 13 (compress): wkv_chunk launches per "
+                             f"step {per_step}, expected {want}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"phase 13 (compress): losses {out['losses']}")
+    ef = _flat(out["state"]["ef"])
+    nonzero = sum(int(bool(t.abs().amax() > 0)) for t in ef.values())
+    if not nonzero:
+        raise AssertionError("phase 13 (compress): the int8_ef residual is "
+                             "zero")
+    res = dict(argv=TRAIN_COMPRESS_ARGV, losses=out["losses"],
+               step_s=out["step_s"], launches_per_step=per_step[0],
+               peak_gb=peak_gb,
+               ef_leaves_nonzero=f"{nonzero} of {len(ef)}",
+               ef_abs_max=max(float(t.abs().amax()) for t in ef.values()))
+    del out
+    return res
+
+
+def _train_wkv_gradient(seed: int) -> dict:
+    """13b (i): the kernel's wrapper on inputs that require grad at one
+    full-width layer's shape from a random state: it launches once through
+    WkvChunk, its output lies within WKV_BOUND of the plain version's and
+    its six gradients equal autograd's through the plain version bit for
+    bit. Then each training shape (a microbatch of the main run, the
+    ``--compress`` run's batch): the kernel's output and final state
+    within WKV_BOUND of the plain version's, timed beside its bound, with
+    the plain backward's time."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    shape = (2, 1024, 40, 64)
+    a = _wkv_inputs(shape, 2.0, gen)
+    g_out = torch.randn(shape, generator=gen, device=dev)
+    g_state = torch.randn(a[5].shape, generator=gen, device=dev)
+    xs = [t.clone().requires_grad_() for t in a]
+    n0 = ops.wkv_chunk.launches
+    out, state = ops.wkv_chunk(*xs)
+    if ops.wkv_chunk.launches != n0 + 1 or out.grad_fn is None:
+        raise AssertionError("phase 13: wkv_chunk on inputs that require "
+                             "grad did not launch once through WkvChunk")
+    got = torch.autograd.grad((out, state), xs, (g_out, g_state))
+    ys = [t.clone().requires_grad_() for t in a]
+    out2, state2 = ref.wkv_chunked_ref(*ys)
+    want = torch.autograd.grad((out2, state2), ys, (g_out, g_state))
+    rel = max(_rel(out.detach(), out2.detach()),
+              _rel(state.detach(), state2.detach()))
+    unequal = [n for n, g, w in zip(("r", "k", "v", "logw", "u", "state"),
+                                    got, want) if not torch.equal(g, w)]
+    if not rel < WKV_BOUND or unequal:
+        raise AssertionError(f"phase 13: WkvChunk output {rel:.3e} of the "
+                             f"plain version's (bound {WKV_BOUND}); "
+                             f"gradients unequal: {unequal}")
+    del xs, ys, out, state, out2, state2, got, want
+    timed = {}
+    for shp in ((2, 1024, 40, 64), (4, 1024, 40, 64)):
+        b = _wkv_inputs(shp, 2.0, gen)
+        out, state = ops.wkv_chunk(*b)
+        out2, state2 = ref.wkv_chunked_ref(*b)
+        err = max(_rel(out, out2), _rel(state, state2))
+        if not err < WKV_BOUND:
+            raise AssertionError(f"phase 13: wkv_chunk at {shp} {err:.3e} "
+                                 f"of the plain version's (bound "
+                                 f"{WKV_BOUND})")
+        del out, state, out2, state2
+        bound_ms, bound_by = _wkv_bound(shp)
+        xs = [t.clone().requires_grad_() for t in b]
+        g = (torch.randn(shp, generator=gen, device=dev),
+             torch.zeros_like(b[5]))
+
+        def bwd():
+            o = ops.WkvChunk.apply(*xs)
+            torch.autograd.grad(o, xs, g)
+
+        timed["x".join(map(str, shp))] = dict(
+            rel_err=err, ms=_time_ms(lambda: ops.wkv_chunk(*b)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            fwd_bwd_ms=_time_ms(bwd, reps=3, warmup=1))
+        del b, xs, g
+    return dict(shape=list(shape), rel_err=rel, rel_bound=WKV_BOUND,
+                grads_bit_equal=True, timed=timed)
+
+
+def _train_cpu_gap(seed: int, batch=TRAIN_CHECK_BATCH) -> dict:
+    """13b (ii), the measurement: rwkv6-3b at full width cut to
+    TRAIN_CHECK_LAYERS layers, float32 compute, its bf16 weights (drawn on
+    the card) held in float32 leaves (the same values; the gradients then
+    come out in float32): one train step of one microbatch of ``batch``
+    (``loss_and_grads``, then ``adamw_update``) on the card (the wkv
+    kernel through WkvChunk) and on the CPU (the plain wkv). Each leaf
+    against the CPU's as max|Δ| / max|CPU leaf|: the loss and every
+    gradient leaf; the card's AdamW on the CPU's gradients against the
+    CPU's AdamW (the optimizer alone). The card's full step against the
+    CPU's full step by tests/_torch_train.py's rule: the parameters
+    beyond |Δ| ≤ 2^-7·|ref| + TRAIN_PARAM_ATOL·max|ref leaf| are counted
+    (``beyond``, by leaf). AdamW's first step moves each element by
+    lr·ĝ/(|ĝ| + eps), so an element whose clipped gradient is near eps
+    (zero-initialised ``mu_x``'s) turns a gradient difference within its
+    bound into a large share of lr. :func:`_train_cpu_check` gates it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import TrainConfig, adamw_update
+    from repro_torch.train.optim import init_opt
+    from repro_torch.train.step import loss_and_grads
+
+    n = TRAIN_CHECK_LAYERS
+    full = get_config("rwkv6-3b")
+    cfg = dataclasses.replace(full, num_layers=n, dtype=torch.float32,
+                              name=f"{full.name}-{n}L+f32")
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    card = tree_map(lambda t: t.float(), M.init_params(cfg, gen, dev))
+    host = tree_map(lambda t: t.to(cpu, copy=True), card)
+    B, S = batch
+    b = TokenDataset(cfg.vocab_size, S, seed=seed).shard_batch(0, B)
+    tc = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    took = {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        took[what] = time.perf_counter() - t0
+        return out
+
+    def grads_on(params, d):
+        loss, grads = loss_and_grads(params, cfg, {
+            k: torch.as_tensor(v, device=d) for k, v in b.items()})
+        return float(loss), grads
+
+    loss_c, grads_c = timed("card_grads_s", lambda: grads_on(card, dev))
+    loss_h, grads_h = timed("cpu_grads_s", lambda: grads_on(host, cpu))
+    timed("cpu_adamw_s", lambda: adamw_update(tc, host, grads_h,
+                                              init_opt(host)))
+    grads_h = tree_map(lambda t: t.to(dev), grads_h)
+    same = tree_map(lambda t: t.clone(), card)
+    adamw_update(tc, same, grads_h, init_opt(same))
+    adamw_update(tc, card, grads_c, init_opt(card))
+    gc, gh, pc, ps, ph = (_flat(t) for t in (
+        grads_c, grads_h, card, same, tree_map(lambda t: t.to(dev), host)))
+    del grads_c, grads_h, card, same, host
+
+    def rel(got, want):
+        return {k: float((got[k] - w).abs().max() / w.abs().max())
+                for k, w in want.items()}
+
+    grad_rel, same_rel = rel(gc, gh), rel(ps, ph)
+    beyond, excess = {}, 0.0
+    for k, w in ph.items():
+        d = (pc[k] - w).abs()
+        lim = 2.0 ** -7 * w.abs() + TRAIN_PARAM_ATOL * w.abs().max()
+        beyond[k] = int((d > lim).sum())
+        excess = max(excess, float(((d - lim) / w.abs().max()).max()))
+    n_params = sum(t.numel() for t in ph.values())
+    worst = dict(loss=abs(loss_c - loss_h) / abs(loss_h),
+                 grad=max(grad_rel.values()),
+                 grad_leaf=max(grad_rel, key=grad_rel.get),
+                 same_grads_param=max(same_rel.values()),
+                 same_grads_param_leaf=max(same_rel, key=same_rel.get),
+                 beyond=sum(beyond.values()), of=n_params,
+                 beyond_by_leaf={k: c for k, c in beyond.items() if c},
+                 beyond_max_excess=excess)
+    return dict(layers=n, batch=list(batch), worst=worst,
+                bounds=dict(loss=TRAIN_CPU_LOSS_BOUND,
+                            grad=TRAIN_CPU_GRAD_BOUND,
+                            same_grads_param=TRAIN_CPU_PARAM_BOUND,
+                            param_atol=TRAIN_PARAM_ATOL,
+                            beyond_share=TRAIN_PARAM_DIFF_SHARE),
+                grad_rel=grad_rel, same_grads_param_rel=same_rel,
+                loss=loss_h, card_loss=loss_c, **took)
+
+
+def _train_cpu_check(seed: int) -> dict:
+    """13b (ii): :func:`_train_cpu_gap` at TRAIN_CHECK_BATCH within the
+    TRAIN_CPU_* bounds and at most TRAIN_PARAM_DIFF_SHARE of the
+    parameters beyond the per-element rule."""
+    r = _train_cpu_gap(seed)
+    worst = r["worst"]
+    if not (worst["loss"] < TRAIN_CPU_LOSS_BOUND
+            and worst["grad"] < TRAIN_CPU_GRAD_BOUND
+            and worst["same_grads_param"] < TRAIN_CPU_PARAM_BOUND
+            and worst["beyond"] <= TRAIN_PARAM_DIFF_SHARE * worst["of"]
+            and math.isfinite(r["card_loss"])):
+        raise AssertionError(f"phase 13: the card's train step against the "
+                             f"CPU's: {worst} (bounds loss "
+                             f"{TRAIN_CPU_LOSS_BOUND}, grad "
+                             f"{TRAIN_CPU_GRAD_BOUND}, param on the same "
+                             f"gradients {TRAIN_CPU_PARAM_BOUND}, beyond "
+                             f"{TRAIN_PARAM_DIFF_SHARE} of the parameters)")
+    return r
+
+
+def _train_resume(seed: int) -> dict:
+    """13c (i): rwkv6-3b at full width cut to TRAIN_CHECK_LAYERS layers
+    (bf16), under ``torch.use_deterministic_algorithms(True)``: 3 steps
+    uninterrupted against 2 steps, an ``AsyncCheckpointer`` save, a
+    restore and 1 step: the state and the last loss equal bit for bit;
+    where they are not, a second uninterrupted run measures how far two
+    runs part, the resumed run must lie within that (each leaf's
+    max|Δ|), and the ops that warned of no deterministic version are
+    named."""
+    import dataclasses
+    import os
+    import shutil
+    import warnings
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step, train_state_defs)
+    from repro_torch.train.checkpoint import (AsyncCheckpointer,
+                                              restore_checkpoint)
+
+    full = get_config("rwkv6-3b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_CHECK_LAYERS,
+                              name=f"{full.name}-{TRAIN_CHECK_LAYERS}L")
+    tc = TrainConfig(lr=3e-3, warmup_steps=2, total_steps=3, microbatches=2)
+    dev = torch.device("cuda")
+    ds = TokenDataset(cfg.vocab_size, 1024, seed=0)
+    step = make_train_step(cfg, tc)
+    ckpt = ROOT / "build" / "phase13_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in ds.shard_batch(i, 4).items()}
+
+    def fresh():
+        return init_train_state(
+            cfg, tc, torch.Generator(device=dev).manual_seed(seed), dev)
+
+    def steps(state, first, last):
+        loss = None
+        for i in range(first, last):
+            state, m = step(state, batch(i))
+            loss = float(m["loss"])
+        return state, loss
+
+    def apart(x, y) -> dict:
+        fx, fy = _flat(x), _flat(y)
+        return {k: float((fy[k].float() - t.float()).abs().max())
+                for k, t in fx.items()}
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            a, loss_a = steps(fresh(), 0, 3)
+            b, _ = steps(fresh(), 0, 2)
+            state_gb = sum(t.numel() * t.element_size()
+                           for t in _flat(b).values()) / 1e9
+            ck = AsyncCheckpointer(ckpt, keep=1)
+            t0 = time.perf_counter()
+            ck.save(2, b)
+            save_s = time.perf_counter() - t0
+            del b
+            ck.wait()
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            b, at = restore_checkpoint(ckpt, train_state_defs(cfg, tc),
+                                       device=dev)
+            restore_s = time.perf_counter() - t0
+            b, loss_b = steps(b, at, 3)
+            diff = apart(a, b)
+            bit_equal = not any(diff.values()) and loss_b == loss_a
+            spread = None
+            if not bit_equal:  # how far two uninterrupted runs part
+                spread = apart(a, steps(fresh(), 0, 3)[0])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    ops_warned = sorted({str(w.message).split(" does not have")[0][:80]
+                         for w in caught if "deterministic" in str(w.message)})
+    if spread is not None:
+        beyond = {k: d for k, d in diff.items() if d > spread[k]}
+        if beyond:
+            raise AssertionError(f"phase 13: the resumed run parts from the "
+                                 f"uninterrupted one at {beyond}, beyond "
+                                 f"two uninterrupted runs' spread; ops with "
+                                 f"no deterministic version: {ops_warned}")
+    return dict(layers=TRAIN_CHECK_LAYERS, state_gb=state_gb,
+                bit_equal=bit_equal, resumed_max_abs=max(diff.values()),
+                spread_max=None if spread is None else max(spread.values()),
+                nondeterministic_ops=ops_warned, losses=[loss_a, loss_b],
+                save_call_s=save_s, save_total_s=write_s,
+                restore_s=restore_s)
+
+
+def _train_smoke_families(seed: int) -> dict:
+    """13c (ii): one train step of each family's reduced config on the card
+    against the CPU, within tests/_torch_train.py's bounds (the loss; each
+    bf16 gradient and updated parameter within one bf16 step plus its
+    atol; at most SMOKE_PARAM_DIFF_SHARE of the parameters apart)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.optim import init_opt
+    from repro_torch.train.step import loss_and_grads
+
+    dev = torch.device("cuda")
+    tc = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    rows = {}
+    for arch in SMOKE_FAMILIES:
+        cfg = get_config(arch + "-smoke")
+        host = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                             "cpu")
+        rng = np.random.default_rng(seed)
+        if "cross" in host:  # the vlm's gates start at 0: draw them nonzero
+            gate = host["cross"]["xattn"]["gate"]
+            gate.copy_(torch.from_numpy(rng.normal(size=gate.shape)))
+        b = TokenDataset(cfg.vocab_size, 32, seed=1).shard_batch(0, 4)
+        if cfg.family in ("vlm", "audio"):
+            b["cond"] = rng.normal(size=(4, cfg.n_cross_tokens, cfg.d_model)
+                                   ).astype(np.float32)
+        out = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            params = tree_map(lambda t: t.to(d, copy=True), host)
+            batch = {k: torch.as_tensor(v, device=d) for k, v in b.items()}
+            loss, grads = loss_and_grads(params, cfg, batch)
+            state, m = make_train_step(cfg, tc)(
+                {"params": params, "opt": init_opt(params)}, batch)
+            out[where] = (float(loss), _flat(tree_map(
+                lambda t: t.double().cpu(), grads)), _flat(tree_map(
+                    lambda t: t.double().cpu(), state["params"])),
+                float(m["loss"]))
+        (lc, gc, pc, sc), (lh, gh, ph, sh) = out["card"], out["cpu"]
+        worst = dict(loss=max(abs(lc - lh) / abs(lh), abs(sc - sh) / abs(sh)))
+        for what, got, want, atol, summed in (
+                ("grad", gc, gh, SMOKE_GRAD_ATOL, SMOKE_SUMMED_ATOL),
+                ("param", pc, ph, SMOKE_PARAM_ATOL, SMOKE_PARAM_ATOL)):
+            excess, apart = 0.0, 0
+            for k, w in want.items():
+                a = summed if k.startswith(SMOKE_SUMMED) else atol
+                d = (got[k] - w).abs()
+                lim = 2.0 ** -7 * w.abs() + a * w.abs().max()
+                excess = max(excess, float((d - lim).max()))
+                apart += int((d > 0).sum())
+            worst[what + "_excess"] = excess
+            worst[what + "_apart"] = apart
+        n = sum(t.numel() for t in ph.values())
+        if not (worst["loss"] <= SMOKE_LOSS_REL and worst["grad_excess"] <= 0
+                and worst["param_excess"] <= 0
+                and worst["param_apart"] <= SMOKE_PARAM_DIFF_SHARE * n):
+            raise AssertionError(f"phase 13: {cfg.name}'s train step on the "
+                                 f"card against the CPU's: {worst}")
+        rows[cfg.name] = worst
+    return rows
+
+
+def _train_elastic(seed: int) -> dict:
+    """13c (iii): one ElasticTrainer epoch of gemma-2b's reduced config on
+    the card, 10 shards over 2 workers, w0 killed mid-shard: every shard
+    applied once."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import SimScheduler
+    from repro_torch.data import TokenDataset
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train.elastic import ElasticTrainer
+
+    dev = torch.device("cuda")
+    cfg = get_config("gemma-2b-smoke")
+    tc = TrainConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    state = init_train_state(
+        cfg, tc, torch.Generator(device=dev).manual_seed(seed), dev)
+    ds = TokenDataset(cfg.vocab_size, 32, seed=0)
+    sched = SimScheduler()
+    t = ElasticTrainer(sched, cfg, tc, state,
+                       lambda shard: ds.shard_batch(shard, 4))
+    for i in range(2):
+        t.add_worker(f"w{i}")
+    sched.schedule(15.0, lambda: t.kill_worker("w0"))
+    done = t.run_epoch(n_shards=10)
+    if done != list(range(10)) or len(t.losses) != 10 or not all(
+            math.isfinite(x) for x in t.losses):
+        raise AssertionError(f"phase 13: elastic epoch applied {done}, "
+                             f"{len(t.losses)} updates")
+    return dict(shards=10, applied=len(t.losses),
+                device=str(state["opt"]["count"].device),
+                losses=t.losses)
+
+
+def run_training(seed: int, card: str) -> dict:
+    """Phase 13: training rwkv6-3b on the card (module doc)."""
+    t0 = time.perf_counter()
+    out, parts_s = {}, {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        out[name] = fn()
+        _free()
+        parts_s[name] = time.perf_counter() - t
+
+    part("main", lambda: _train_main_run(card))
+    out["main"], trained = out["main"]
+    part("profile", lambda: _train_profile(trained))
+    del trained
+    _free()
+    part("compress", _train_compress_run)
+    part("wkv", lambda: _train_wkv_gradient(seed))
+    part("cpu_check", lambda: _train_cpu_check(seed))
+    part("resume", lambda: _train_resume(seed))
+    part("smoke_families", lambda: _train_smoke_families(seed))
+    part("elastic", lambda: _train_elastic(seed))
+    return dict(card=card, **out, parts_s=parts_s,
+                phase_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2703,6 +3382,12 @@ def main() -> int:
         fam = run_family_serving(arch, depth, args.seed, card)
         _log(f"{fam['family']} serving: " + json.dumps(fam))
     _log(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    _free()
+
+    # 13. training rwkv6-3b on the card
+    training = run_training(args.seed, card)
+    _log("training: " + json.dumps(training))
+    _log(f"phase 13: {training['phase_s']:.1f} s")
 
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,
@@ -2713,6 +3398,11 @@ def main() -> int:
         k["launches"] = path_of[name]["launches"][name]
         if not k["launches"]:
             raise AssertionError(f"{name} was not launched on its path")
+    # and on the training path (phase 13a): calls a step, and each training
+    # shape's time beside its bound
+    kernels["wkv_chunk"].update(
+        train_launches=training["main"]["launches_per_step"],
+        train_timed=training["wkv"]["timed"])
 
     _log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -7,9 +7,10 @@ config holds every field of the reference that a ported family (dense,
 moe, ssm, hybrid, vlm, audio) or the shape grid reads, each at the
 reference's position with its default, so :meth:`ModelConfig.reduced`
 equals the reference's field by field. ``attn_bias`` comes with the first
-family that builds attention biases (no registered arch sets it), and the
-layer scan's ``scan_layers`` / ``remat`` with ``train/`` (ROADMAP A9.2;
-the port walks layers in a Python loop).
+family that builds attention biases (no registered arch sets it), and
+``scan_layers`` is left out (the port walks layers in a Python loop; no
+registered arch sets it). ``remat`` is the training forward's per-layer
+``torch.utils.checkpoint`` policy (``models/model.py``).
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ class ModelConfig:
     dtype: Any = torch.bfloat16  # compute dtype (parameters are bf16)
     loss_chunk: int = 512  # sequence chunking for the softmax-xent head
     attn_chunk: int = 1024  # KV-block size for blocked attention
+    remat: str = "nothing"  # nothing | dots | none
     kv_cache_dtype: str = "bf16"  # bf16 | int8 (quantized serving KV cache)
 
     source: str = ""  # citation tag from the assignment table

@@ -33,7 +33,8 @@ from repro_torch.kernels._build import library
 
 __all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
            "dct8x8_quant", "idct8x8_dequant", "entropy_decode", "ENTROPY_THREADS",
-           "wkv_chunk", "wkv_scratch_floats", "wkv_scratch_views"]
+           "wkv_chunk", "wkv_scratch_floats", "wkv_scratch_views",
+           "WkvChunk"]
 
 
 def _launches_kernel(x: torch.Tensor, name: str, ndim: int, impl: str,
@@ -420,6 +421,12 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mirrored by :func:`ref.wkv_chunk_passes_ref`): they agree to
     ``max|Δ| / (max|ref| + 1) < 5e-4`` (ROADMAP F7). A launch that fails
     raises; there is no fallback to the plain version.
+
+    The kernel writes its outputs through raw pointers, so they carry no
+    autograd history: where it would launch on inputs that require grad
+    while grad mode is on, the call goes through :class:`WkvChunk`, whose
+    forward is this kernel and whose backward is the plain chunked form's
+    gradient.
     """
     if r.dim() != 4:
         raise ValueError(f"wkv_chunk: r must be (B, S, H, K), got "
@@ -448,6 +455,9 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _check_aligned(t, f"wkv_chunk: {name}")
     if not launch:
         return ref.wkv_chunked_ref(r, k, v, logw, u, state)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, state)):
+        return WkvChunk.apply(r, k, v, logw, u, state)
     out = torch.empty_like(r)
     final = torch.empty_like(state)
     if B * H == 0:
@@ -468,3 +478,33 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 wkv_chunk.launches = 0
+
+
+class WkvChunk(torch.autograd.Function):
+    """:func:`wkv_chunk` with a gradient: ``WkvChunk.apply(r, k, v, logw,
+    u, state) -> (out, final_state)``; :func:`wkv_chunk` comes
+    here by itself when it would launch on inputs that require grad.
+
+    The forward is :func:`wkv_chunk`, run with grad off (on a CUDA tensor
+    the kernel, counted once in ``wkv_chunk.launches``; on the CPU its
+    plain version). The backward
+    recomputes the plain chunked form (:func:`ref.wkv_chunked_ref`) on the
+    saved inputs and differentiates it by autograd, giving all six
+    gradients, the initial state's included: the gradient ``repro``
+    takes, which differentiates XLA's ``wkv_chunked`` (its Pallas kernel
+    has no VJP). A backward kernel is later work (ROADMAP A12).
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state):
+        ctx.save_for_backward(r, k, v, logw, u, state)
+        with torch.profiler.record_function("wkv_fwd"):
+            return wkv_chunk(r, k, v, logw, u, state)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.profiler.record_function("wkv_bwd"), torch.enable_grad():
+            out, final = ref.wkv_chunked_ref(*inputs)
+            return torch.autograd.grad((out, final), inputs,
+                                       (g_out, g_state))

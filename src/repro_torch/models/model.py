@@ -23,7 +23,11 @@ Families:
   ssm    — rwkv6: time-mix + channel-mix
 
 Layers are stored stacked (a leading ``layers`` axis on every leaf) as in
-the reference and walked with a Python loop in place of ``lax.scan``.
+the reference and walked with a Python loop in place of ``lax.scan``; the
+full-sequence forward splits each stack once with ``torch.unbind``
+(:func:`_unstack`), and under grad wraps each layer body in
+``torch.utils.checkpoint`` by ``cfg.remat`` (:func:`_remat`, the
+reference's ``_maybe_remat``).
 ``impl`` (``"auto"`` or ``"ref"``) goes to ``kernels.ops.wkv_chunk``, the
 ssm prefill's one kernel; a function with its signature takes its place
 (:func:`rwkv6.rwkv_block`). The other families run no kernel of their own
@@ -34,8 +38,11 @@ stream.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import layers as lyr
 from repro_torch.models import mamba2 as mb
@@ -68,6 +75,17 @@ def _stack(defs, n: int):
 def _layer(tree, i: int):
     """Layer ``i``'s slice of a stacked tree (views, no copies)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree (views, no copies).
+
+    Each leaf is split once, by ``torch.unbind``, whose backward stacks the
+    layers' gradients in one write. Slicing ``a[i]`` per layer would give
+    each layer a ``SelectBackward`` that writes a zero-filled gradient of
+    the whole stack, and autograd would sum ``n`` of them."""
+    parts = tree_map(torch.unbind, tree)
+    return [tree_map(lambda p: p[i], parts) for i in range(n)]
 
 
 def _norm_def(cfg):
@@ -156,6 +174,34 @@ def active_param_count(cfg) -> int:
 
 
 # --------------------------------------------------------------------------
+# remat
+# --------------------------------------------------------------------------
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the matmul outputs, recompute the rest (the
+    counterpart of ``checkpoint_dots_with_no_batch_dims``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """``fn`` (a layer body) under ``cfg.remat`` when grad is on: ``"none"``
+    keeps every activation, ``"dots"`` the matmul outputs, anything else
+    (``"nothing"``, the default) recomputes the whole body in the
+    backward, as the reference's ``_maybe_remat``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+# --------------------------------------------------------------------------
 # layer bodies (full sequence)
 # --------------------------------------------------------------------------
 def _apply_dense(pl, cfg, x, positions):
@@ -208,6 +254,13 @@ def _apply_shared(ps, cfg, x, positions):
     return x + lyr.mlp_apply(ps["mlp"], cfg, h2), kv
 
 
+def _apply_mamba(pl, cfg, x, want: bool):
+    """One Mamba2 layer of the hybrid with its residual."""
+    h = lyr.rms_norm(x, pl["norm"], cfg.norm_eps)
+    out, st = mb.mamba2_apply(pl, cfg, h, return_state=want)
+    return x + out, st
+
+
 def _stacked(items):
     """A list of per-layer trees → one tree of stacked leaves."""
     return tree_map(lambda *xs: torch.stack(xs), *items)
@@ -239,37 +292,37 @@ def forward(params, cfg, tokens, *, cond=None, mode: str = "train",
     parts: dict = {}
     kvs, xkvs, states = [], [], []
 
+    layers = _unstack(params["layers"], cfg.num_layers)
     if fam in ("dense", "vlm", "moe", "audio"):
         every = cfg.cross_attn_every if fam == "vlm" else 0
-        for i in range(cfg.num_layers):
-            pl = _layer(params["layers"], i)
-            if every and i % every == 0 and i // every < _n_cross(cfg):
-                x, xkv = _apply_cross(_layer(params["cross"], i // every),
-                                      cfg, x, cond)
+        cross = _unstack(params["cross"], _n_cross(cfg)) if every else []
+        for i, pl in enumerate(layers):
+            if every and i % every == 0 and i // every < len(cross):
+                x, xkv = _remat(_apply_cross, cfg)(cross[i // every], cfg,
+                                                    x, cond)
                 if want:
                     xkvs.append(xkv)
             if fam == "moe":
-                x, kv, a = _apply_moe(pl, cfg, x, positions)
+                x, kv, a = _remat(_apply_moe, cfg)(pl, cfg, x, positions)
                 aux = aux + a
             elif fam == "audio":
-                x, kv, xkv = _apply_audio(pl, cfg, x, positions, cond)
+                x, kv, xkv = _remat(_apply_audio, cfg)(pl, cfg, x,
+                                                       positions, cond)
                 if want:
                     xkvs.append(xkv)
             else:
-                x, kv = _apply_dense(pl, cfg, x, positions)
+                x, kv = _remat(_apply_dense, cfg)(pl, cfg, x, positions)
             if want:
                 kvs.append(kv)
     elif fam == "hybrid":
         start, skvs = 0, []
         for cnt in zamba_groups(cfg):
-            x, kv = _apply_shared(params["shared"], cfg, x, positions)
+            x, kv = _remat(_apply_shared, cfg)(params["shared"], cfg, x,
+                                               positions)
             if want:
                 skvs.append(kv)
-            for i in range(start, start + cnt):
-                pl = _layer(params["layers"], i)
-                h = lyr.rms_norm(x, pl["norm"], cfg.norm_eps)
-                out, st = mb.mamba2_apply(pl, cfg, h, return_state=want)
-                x = x + out
+            for pl in layers[start:start + cnt]:
+                x, st = _remat(_apply_mamba, cfg)(pl, cfg, x, want)
                 if want:
                     states.append(st)
             start += cnt
@@ -278,9 +331,9 @@ def forward(params, cfg, tokens, *, cond=None, mode: str = "train",
             parts["shared_v"] = torch.stack([v for _, v in skvs])
             parts["mamba"] = _stacked(states)
     elif fam == "ssm":
-        for i in range(cfg.num_layers):
-            x, st = rwkv.rwkv_block(_layer(params["layers"], i), cfg, x,
-                                    impl=impl)
+        block = partial(rwkv.rwkv_block, impl=impl)
+        for pl in layers:
+            x, st = _remat(block, cfg)(pl, cfg, x)
             if want:
                 states.append(st)
         if want:
@@ -299,10 +352,13 @@ def forward(params, cfg, tokens, *, cond=None, mode: str = "train",
 
 
 def lm_loss(params, cfg, batch, *, impl: str = "auto"):
-    """batch: {"tokens": (B, S), "labels": (B, S)[, "cond": (B, n, D)]}."""
+    """batch: {"tokens": (B, S), "labels": (B, S)[, "cond": (B, n, D)]}.
+    The loss head runs in a ``record_function("xent")`` range."""
     x, aux, _ = forward(params, cfg, batch["tokens"], cond=batch.get("cond"),
                         mode="train", impl=impl)
-    loss = lyr.softmax_xent_chunked(params["embed"], cfg, x, batch["labels"])
+    with torch.profiler.record_function("xent"):
+        loss = lyr.softmax_xent_chunked(params["embed"], cfg, x,
+                                        batch["labels"])
     return loss + 0.01 * aux
 
 

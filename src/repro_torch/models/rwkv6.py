@@ -11,7 +11,9 @@ comes in three forms sharing one parameter set:
 * the chunked prefill form, :func:`repro_torch.kernels.ops.wkv_chunk`: on a
   CUDA tensor the hand-written kernel (``kernels/csrc/wkv_chunk.cu``), on
   the CPU or with ``impl="ref"`` its plain version, the reference's
-  ``wkv_chunked`` transcribed;
+  ``wkv_chunked`` transcribed; under autograd on the card the wrapper
+  goes through :class:`~repro_torch.kernels.ops.WkvChunk` (the kernel
+  forward, the plain chunked form's gradient);
 * :func:`wkv_decode` — the O(1) recurrent decode update, plain torch.
 
 Token-shift ("ddlerp") and the decay LoRA follow the published Finch

@@ -99,7 +99,8 @@ def _cfg_fields(cfg) -> dict:
 # --------------------------------------------------------------------------
 def test_config_fields_are_the_references():
     """The port's fields are the reference's, in its order and with its
-    defaults (less the three no ported code reads)."""
+    defaults (less ``attn_bias`` and ``scan_layers``, which no ported
+    code reads)."""
     import repro.configs.base as jbase
     import repro_torch.configs.base as tbase
     jfields = {f.name: f for f in dataclasses.fields(jbase.ModelConfig)}

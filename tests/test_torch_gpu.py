@@ -1,6 +1,6 @@
 """The port on a CUDA card: each kernel vs its plain version, the
 converter, the decoders and the RWKV6 and dense serving paths on the
-card vs their CPU plain paths. Every
+card vs their CPU plain paths, and the wkv kernel under autograd. Every
 test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a GPU machine that has none:
 
@@ -598,3 +598,49 @@ def test_dense_smoke_prefill_and_decode_on_card_match_cpu(cuda_device, name):
         assert all(new[k] is got_cache[k] for k in new)
         want, _ = M.decode_step(params, cfg, want_cache, tok, pos)
         assert _rel(got, want) < 1e-4
+
+
+def test_wkv_chunk_gradients_flow_through_the_wrapper(cuda_device):
+    """The kernel writes its outputs through raw pointers: on inputs that
+    require grad, with grad mode on, the wrapper goes through WkvChunk, so
+    it launches the kernel once and its outputs carry a gradient equal to
+    autograd's through the plain version; under no_grad it launches and
+    the outputs carry none."""
+    a = _wkv_inputs((1, 130, 2, 64), 2.0, 9, cuda_device)
+    xs = [t.clone().requires_grad_() for t in a]
+    n0 = ops.wkv_chunk.launches
+    out, state = ops.wkv_chunk(*xs)
+    assert ops.wkv_chunk.launches == n0 + 1
+    assert out.grad_fn is not None and state.grad_fn is not None
+    got = torch.autograd.grad((out.sum(), state.sum()), xs)
+    ys = [t.clone().requires_grad_() for t in a]
+    out2, state2 = ref.wkv_chunked_ref(*ys)
+    want = torch.autograd.grad((out2.sum(), state2.sum()), ys)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with torch.no_grad():
+        out, state = ops.wkv_chunk(*xs)
+    assert ops.wkv_chunk.launches == n0 + 2
+    assert out.grad_fn is None and state.grad_fn is None
+
+
+@pytest.mark.parametrize("shape", [(2, 1024, 4, 64), (1, 200, 3, 16)])
+def test_wkv_function_on_card_launches_and_matches_plain(cuda_device, shape):
+    """WkvChunk on the card: its forward launches the kernel once (within
+    F7 of the plain version), its six gradients equal autograd through
+    the plain version bit for bit (the backward is that code)."""
+    a = _wkv_inputs(shape, 2.0, 11, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    g_out = torch.randn(a[0].shape, generator=gen, device=cuda_device)
+    g_state = torch.randn(a[5].shape, generator=gen, device=cuda_device)
+    xs = [t.clone().requires_grad_() for t in a]
+    n0 = ops.wkv_chunk.launches
+    out, state = ops.WkvChunk.apply(*xs)
+    assert ops.wkv_chunk.launches == n0 + 1
+    got = torch.autograd.grad((out, state), xs, (g_out, g_state))
+    ys = [t.clone().requires_grad_() for t in a]
+    out2, state2 = ref.wkv_chunked_ref(*ys)
+    want = torch.autograd.grad((out2, state2), ys, (g_out, g_state))
+    assert _rel(out, out2) < WKV_BOUND and _rel(state, state2) < WKV_BOUND
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
