@@ -157,9 +157,9 @@ raises (exit code ≠ 0) on any failed check:
 12. the moe, hybrid, vlm and audio families (no kernel of the port on
     this path either: the counts must stay 0). (a) ``mixtral-8x7b`` at
     full width (d_model 4096, 32 heads and 8 KV heads of 128, 8 experts
-    with top-2, d_ff 14336, vocab 32000, sliding window 4096) cut to 16
+    with top-2, d_ff 14336, vocab 32000, sliding window 4096) cut to 8
     of its 32 layers (the whole model, 93.4 GB of bf16, does not fit one
-    80 GB card; the cut is printed), 23,482,470,400 parameters, random
+    80 GB card; the cut is printed), 11,872,309,248 parameters, random
     from a seeded generator, served through the bus as phase 11 serves
     (4 slots, ``max_len`` 4096, phase 9's prompts, 32 new tokens) with
     phase 11's gates 1–3; gate 5 at 2 layers of the same width in float32
@@ -194,7 +194,7 @@ raises (exit code ≠ 0) on any failed check:
 13. training on the card. (a) ``rwkv6-3b`` at full width and depth
     (3,099,609,600 bf16 parameters from seed 0, ``remat="nothing"``)
     trained by ``launch.train.run`` as ``python -m
-    repro_torch.launch.train --arch rwkv6-3b --steps 6 --batch 4 --seq
+    repro_torch.launch.train --arch rwkv6-3b --steps 4 --batch 4 --seq
     1024 --microbatches 2`` runs it: with the launch counts zeroed just
     before, exactly 128 ``wkv_chunk`` launches a step (the forward and the
     remat recompute of 32 layers, per microbatch; through
@@ -203,7 +203,7 @@ raises (exit code ≠ 0) on any failed check:
     ``wr``, ``wk``, ``wv``, ``w0`` and the decay LoRA, which the loss
     reaches only through the wkv, nonzero in every layer. Then ``--steps
     2 --compress --microbatches 1`` (64 launches a step; the ``int8_ef``
-    residual nonzero). Prints the losses, s/step (median of steps 2–6),
+    residual nonzero). Prints the losses, s/step (median of steps 2–4),
     tokens/s, model FLOP/s (6·N·tokens; the recompute apart) and its share
     of the card's dense bf16 peak, peak memory, and one more step of one
     microbatch profiled (device time, busy share, the ``record_function``
@@ -220,14 +220,35 @@ raises (exit code ≠ 0) on any failed check:
     loss and every gradient, the card's AdamW on the CPU's gradients
     against the CPU's AdamW, within the stated bounds (``TRAIN_CPU_*``),
     and the full steps' parameters by tests/_torch_train.py's rule
-    (``TRAIN_PARAM_*``). (c) resume at that cut in bf16 (5.1 GB of state)
+    (``TRAIN_PARAM_*``); at that cut and a (1, 512) batch (ROADMAP F14)
+    float32 gradients against float64 ones computed on the card with the
+    plain wkv: the CPU's and the card's with its GEMMs correctly rounded
+    within ``TRAIN_F64_BOUND``, the card's own (cuBLAS's GEMMs) within
+    ``TRAIN_F64_CARD_BOUND``. (c) resume at that cut in bf16 (5.1 GB of state)
     under ``torch.use_deterministic_algorithms``: 3 steps uninterrupted
     against 2 steps, an ``AsyncCheckpointer`` save, a restore and 1 step,
     equal bit for bit (or, where they are not, within the difference of
     two uninterrupted runs); one train step of
     each family's reduced config on the card against the CPU within
     tests/_torch_train.py's bounds; one ``ElasticTrainer`` epoch on the
-    card with a worker killed mid-shard, every shard applied once.
+    card with a worker killed mid-shard, every shard applied once;
+14. the planning layer against the card: ``rwkv6-3b`` at full width and
+    depth (bf16, random from a seeded generator), a 2048-token prefill
+    and a decode step at 4 slots of ``max_len`` 4096, each counted by
+    ``launch.dryrun.run_cell`` (``roofline.counters``: every aten op, each
+    ported kernel by its work formula once a call) on the card and on
+    meta tensors with the plain wkv. Gates: the card's FLOPs (all, and
+    those at the float32 rate) and bytes equal the meta run's exactly;
+    the roofline bound (``derive_terms`` on
+    the H100's ``HW``) over the measured step (CUDA events, median of 5)
+    at most ``ROOF_SHARE_MAX``; the memory the step allocates above its
+    arguments, predicted by the meta run, within ``ROOF_MEM_BOUND`` of the
+    card's measured one (the totals with the arguments printed); 32
+    ``wkv_chunk`` launches a prefill and none a decode step. Then the
+    ``phi4-mini-3.8b`` ``decode_32k`` cell on the 256-GPU production mesh
+    (a fake process group) in a subprocess: ok, its collectives counted.
+    Prints each cell's counts, terms, time, share, model FLOP share and
+    peak memory.
 
 Prints the kernel JSON line and the card line before the last line, which
 is ``{"ok": true, "device": {...}}``.
@@ -248,9 +269,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# NVIDIA H100 SXM data sheet (dense peaks at the 700 W limit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
 TIE = 1e-5
 MAX_MISMATCH_FRACTION = 1e-6
 # tests/test_storage_dicom.py's bounds: a level-0 tissue tile, and any
@@ -357,10 +375,13 @@ def _graph_ms(fn, calls: int = 200) -> float:
     return ms
 
 
-def _bound(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _bound(work: tuple[float, float]) -> tuple[float, str]:
+    """The least time in ms for a kernel's work ``(ops, nbytes)``
+    (``repro_torch.roofline.work``: the larger of bytes over the H100's
+    memory rate and operations over its float32 rate) and which it is."""
+    from repro_torch.roofline import bound_s
+    t, by = bound_s(*work)
+    return t * 1e3, by
 
 
 def _uids(seed: int) -> str:
@@ -387,13 +408,13 @@ def _tile_tensor(slide: bytes, device):
 
 
 def _transform_bound(tiles) -> tuple[float, str]:
-    """jpeg_transform: 12 B in and 12 B out a pixel, ~112 operations."""
-    return _bound(tiles.numel() * 4 * 2, tiles.numel() // 3 * 112.0)
+    from repro_torch.roofline import jpeg_transform_work
+    return _bound(jpeg_transform_work(tiles.shape))
 
 
 def _inverse_bound(coef) -> tuple[float, str]:
-    """jpeg_inverse: 12 B in and 3 B out a pixel, ~111 operations."""
-    return _bound(coef.numel() * 4 + coef.numel(), coef.numel() // 3 * 111.0)
+    from repro_torch.roofline import jpeg_inverse_work
+    return _bound(jpeg_inverse_work(coef.shape))
 
 
 def block_levels(tiles) -> dict:
@@ -468,6 +489,7 @@ def check_kernels(size: int, slide: bytes, seed: int) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.roofline import downsample2x2_work
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -486,8 +508,7 @@ def check_kernels(size: int, slide: bytes, seed: int) -> dict:
                              "the plain version (must be bit-exact)")
     if not torch.equal(lib, plain):
         raise AssertionError("downsample2x2: avg_pool2d yardstick disagrees")
-    n_out = got.numel()
-    bound_ms, bound_by = _bound(x.numel() * 4 + n_out * 4, n_out * 7.0)
+    bound_ms, bound_by = _bound(downsample2x2_work(x.shape))
     results["downsample2x2"] = dict(
         name="downsample2x2", route="cuda",
         source="src/repro_torch/kernels/csrc/downsample2x2.cu",
@@ -730,6 +751,7 @@ def _check_per_tile_kernels(size: int, gen, tiles) -> dict:
     within 1e-3; it rounds differently)."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.roofline import dct8x8_quant_work, rgb2ycbcr_work
 
     dev = gen.device
     mat = torch.tensor([[0.299, 0.587, 0.114],
@@ -742,8 +764,8 @@ def _check_per_tile_kernels(size: int, gen, tiles) -> dict:
         "slide": _per_tile_inputs(_level_image(tiles, size // 256))}
     del inputs["slide"]["rgb2ycbcr"]  # its arithmetic has no flat path
     results = {}
-    for name, ops_per_elem in (("rgb2ycbcr", 16 / 3),
-                               ("dct8x8_quant", 32.0)):
+    for name, work_of in (("rgb2ycbcr", rgb2ycbcr_work),
+                          ("dct8x8_quant", dct8x8_quant_work)):
         fn = getattr(ops, name)
         mism, err, row = 0, 0.0, {}
         for kind, per_kernel in inputs.items():
@@ -772,8 +794,7 @@ def _check_per_tile_kernels(size: int, gen, tiles) -> dict:
             if name == "rgb2ycbcr":
                 row["level_copy_ms"] = _copy_ms(level)
             for key, xs in (("", tile), ("level_", level)):
-                nbytes = xs.numel() * 8  # float32 in, 4-byte values out
-                row[key + "bound"] = _bound(nbytes, xs.numel() * ops_per_elem)
+                row[key + "bound"] = _bound(work_of(xs.shape))
                 if name == "rgb2ycbcr":
                     def lib(xs=xs):
                         return torch.addmm(bias, mat, xs.view(3, -1)) \
@@ -1133,6 +1154,7 @@ def check_entropy_decode(tar: bytes) -> dict:
     errors included; the kernel's time at every level of the study."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.roofline import entropy_decode_work
     from repro_torch.wsi import jpeg as P, study_levels
     from repro_torch.wsi.dicom import Part10Index
     from repro_torch.wsi.entropy import _device_lut, pack_scans
@@ -1209,9 +1231,8 @@ def check_entropy_decode(tar: bytes) -> dict:
     rounds = stats[:, 0].double()
     decoded, slow = (int(x) for x in stats[:, 1:].sum(0).tolist())
     buf = args[0]
-    nbytes = (coef.numel() * 4 + buf.numel() + len(frames) * (8 + 4 + 4 + 4)
-              + args[3].numel() * 2)
-    bound_ms, bound_by = _bound(nbytes, 0.0)
+    bound_ms, bound_by = _bound(entropy_decode_work(
+        len(frames), H, W, buf.numel(), args[3].numel()))
     del coef, stop, kind, stats
     torch.cuda.empty_cache()
     ms = _time_ms(lambda: ops.entropy_decode(*args))
@@ -1256,15 +1277,9 @@ def _wkv_inputs(shape, decay_max: float, gen):
 
 
 def _wkv_bound(shape) -> tuple[float, str]:
-    """``wkv_chunk``'s bound at (B, S, H, K). Bytes: r, k, v, logw read and
-    out written once, u, the state in and out; operations: the least the
-    recurrence needs per token and head, 5 K^2 + 6 K: r . S (K^2
-    multiply-adds), S <- w S + k^T v (K^2 multiplies, K^2 multiply-adds),
-    the u bonus (r u k summed, times v added to the output: 5 K) and
-    exp(logw) (K)."""
-    B, S, H, K = shape
-    nbytes = 4 * (5 * B * S * H * K + H * K + 2 * B * H * K * K)
-    return _bound(nbytes, B * S * H * (5.0 * K * K + 6.0 * K))
+    """``wkv_chunk``'s bound at (B, S, H, K) (``roofline.wkv_chunk_work``)."""
+    from repro_torch.roofline import wkv_chunk_work
+    return _bound(wkv_chunk_work(*shape))
 
 
 def check_wkv_chunk(seed: int) -> dict:
@@ -2164,9 +2179,10 @@ def run_dense_serving(seed: int, card: str) -> dict:
 
 # phase 12: the moe, hybrid, vlm and audio families
 MOE_ARCH = "mixtral-8x7b"
-# the whole model is 46.7 B parameters (93.4 GB of bf16): half its depth
-# fits one 80 GB card beside the caches
-MOE_LAYERS = 16
+# the whole model is 46.7 B parameters (93.4 GB of bf16): a quarter of
+# its depth (half fits one 80 GB card beside the caches; a quarter keeps
+# the smoke inside its time)
+MOE_LAYERS = 8
 # gates 5 and 6 at the full width in float32 at this depth, on a prompt
 # whose CPU run stays short (2 expert layers are 11.3 GB of float32)
 MOE_CHECK_LAYERS = 2
@@ -2683,7 +2699,7 @@ def run_family_serving(arch: str, check_layers: int, seed: int,
 
 
 # phase 13: training rwkv6-3b on the card
-TRAIN_ARGV = ["--arch", "rwkv6-3b", "--steps", "6", "--batch", "4", "--seq",
+TRAIN_ARGV = ["--arch", "rwkv6-3b", "--steps", "4", "--batch", "4", "--seq",
               "1024", "--microbatches", "2", "--device", "cuda"]
 TRAIN_COMPRESS_ARGV = ["--arch", "rwkv6-3b", "--steps", "2", "--batch", "4",
                        "--seq", "1024", "--microbatches", "1", "--compress",
@@ -2693,7 +2709,7 @@ TRAIN_COMPRESS_ARGV = ["--arch", "rwkv6-3b", "--steps", "2", "--batch", "4",
 TRAIN_WKV_LEAVES = ("u", "wr", "wk", "wv", "w0", "td_w1", "td_w2")
 TRAIN_RANGES = ("wkv_fwd", "wkv_bwd", "adamw", "xent")
 # NVIDIA H100 SXM data sheet: dense bf16 peak at the 700 W limit
-PEAK_BF16_OPS_PER_S = 989e12
+PEAK_BF16_OPS_PER_S = 989e12  # roofline.HW().peak_flops
 # 13b: the card's float32 train step vs the CPU's at a 2-layer cut, each
 # as max|Δ| / max|CPU leaf| (measured on an H100 at 700 W: the loss
 # 8.2e-8, the gradients 1.71e-4 at worst (the embedding; wr 1.35e-4, the
@@ -2705,6 +2721,28 @@ PEAK_BF16_OPS_PER_S = 989e12
 # ROADMAP F14)
 TRAIN_CHECK_LAYERS = 2
 TRAIN_CHECK_BATCH = (2, 512)
+# F14 (ROADMAP; tools/train_cpu_gap.py): at (1, 512) from seed 0 the
+# model amplifies float32 rounding (a step with every op correctly
+# rounded lies 3.52e-4 from float64 on both sides), and the card's cuBLAS
+# float32 GEMMs round 1.3-2.7x farther from float64 than the CPU's
+# (their error grows as sqrt(K)), so the card's step lies 1.59e-2 from
+# float64, the CPU's 7.74e-4 and the card's with correctly rounded GEMMs
+# 9.81e-4. Gates,
+# each the worst leaf's max|Δ| / max|float64 leaf| (float64: the plain
+# wkv on the card): the CPU's step and the card's with correctly rounded
+# GEMMs (the port's own code on the card, the wkv kernel included)
+# within TRAIN_F64_BOUND, twice the largest of the CPU's, the CPU's with
+# every parameter changed in its last bit and the card's with correctly
+# rounded GEMMs over seeds 0-4 (3.15e-3); the card's own step within
+# TRAIN_F64_CARD_BOUND, twice the largest of the card's and the card's
+# perturbed over those seeds (1.59e-2). Measured on an H100 at 700 W
+# (bound_readings): a bf16 cast planted in the wkv's backward reads
+# 0.283 (0.294 with correctly rounded GEMMs) at seed 0 and 0.0127 at
+# the least over seeds 0-4; the wkv's logw gradient scaled by 1 + 1e-3
+# reads 1.0e-3, under both bounds.
+TRAIN_F64_BATCH = (1, 512)
+TRAIN_F64_BOUND = 6.3e-3
+TRAIN_F64_CARD_BOUND = 3.2e-2
 TRAIN_CPU_LOSS_BOUND = 1e-6
 TRAIN_CPU_GRAD_BOUND = 1e-3
 TRAIN_CPU_PARAM_BOUND = 1e-6
@@ -3062,6 +3100,71 @@ def _train_cpu_check(seed: int) -> dict:
     return r
 
 
+def _lm_grads(params, cfg, b, device, impl: str) -> dict:
+    """Every parameter's gradient of ``M.lm_loss`` on batch ``b`` (numpy)
+    at ``params`` moved to ``device``, by leaf path."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_defs
+    from repro_torch.train.step import _unflatten
+
+    paths, leaves = zip(*((p, t.detach().to(device).requires_grad_())
+                          for p, t in tree_defs(params)))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+    with torch.enable_grad():
+        loss = M.lm_loss(_unflatten(paths, leaves), cfg, batch, impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+    return {"/".join(p): g for p, g in zip(paths, grads)}
+
+
+def _train_f64_check(seed: int) -> dict:
+    """13b (iii), F14's gate: at TRAIN_CHECK_LAYERS layers of the full
+    width, one microbatch of TRAIN_F64_BATCH (13b's weights, float32
+    leaves), each side's gradients against those computed in float64 on
+    the card with the plain wkv: the CPU's (the plain wkv) and the card's
+    with every GEMM correctly rounded (computed in float64, rounded once;
+    the wkv kernel) within TRAIN_F64_BOUND, the card's own within
+    TRAIN_F64_CARD_BOUND."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenDataset
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    sys.path.insert(0, str(ROOT / "tools"))
+    from train_cpu_gap import exact_mode
+
+    full = get_config("rwkv6-3b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_CHECK_LAYERS,
+                              dtype=torch.float32)
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    card = tree_map(lambda t: t.float(), M.init_params(cfg, gen, dev))
+    B, S = TRAIN_F64_BATCH
+    b = TokenDataset(cfg.vocab_size, S, seed=seed).shard_batch(0, B)
+    f64 = _lm_grads(tree_map(lambda t: t.double(), card),
+                    dataclasses.replace(cfg, dtype=torch.float64), b, dev,
+                    "ref")
+    with exact_mode({"gemm"}):
+        exact = _lm_grads(card, cfg, b, dev, "auto")
+    sides = {"card": _lm_grads(card, cfg, b, dev, "auto"),
+             "card_exact_gemm": exact,
+             "cpu": _lm_grads(card, cfg, b, cpu, "auto")}
+    bounds = {"card": TRAIN_F64_CARD_BOUND,
+              "card_exact_gemm": TRAIN_F64_BOUND, "cpu": TRAIN_F64_BOUND}
+    dist = {side: {k: float((g[k].to(dev).double() - w).abs().max()
+                            / w.abs().max()) for k, w in f64.items()}
+            for side, g in sides.items()}
+    worst = {side: max(d.values()) for side, d in dist.items()}
+    if not all(worst[side] <= bounds[side] for side in sides):
+        raise AssertionError(f"phase 13: at {TRAIN_F64_BATCH} the float32 "
+                             f"gradients lie {worst} from float64 (bounds "
+                             f"{bounds})")
+    return dict(batch=list(TRAIN_F64_BATCH), bounds=bounds, worst=worst,
+                by_leaf=dist)
+
+
 def _train_resume(seed: int) -> dict:
     """13c (i): rwkv6-3b at full width cut to TRAIN_CHECK_LAYERS layers
     (bf16), under ``torch.use_deterministic_algorithms(True)``: 3 steps
@@ -3277,11 +3380,151 @@ def run_training(seed: int, card: str) -> dict:
     part("compress", _train_compress_run)
     part("wkv", lambda: _train_wkv_gradient(seed))
     part("cpu_check", lambda: _train_cpu_check(seed))
+    part("f64_check", lambda: _train_f64_check(seed))
     part("resume", lambda: _train_resume(seed))
     part("smoke_families", lambda: _train_smoke_families(seed))
     part("elastic", lambda: _train_elastic(seed))
     return dict(card=card, **out, parts_s=parts_s,
                 phase_s=time.perf_counter() - t0)
+
+
+# phase 14: the planning layer's counts and roofline against the card
+ROOF_ARCH = "rwkv6-3b"
+# (name, seq_len, batch, kind): a 2048-token prefill; a decode step at 4
+# slots of max_len 4096 (phase 9's engine)
+ROOF_CELLS = (("prefill_2k", 2048, 1, "prefill"),
+              ("decode_4k", SERVE_MAX_LEN, SERVE_SLOTS, "decode"))
+ROOF_TIME_REPS = 5
+# the largest share of the roofline a reading may show: a share above it
+# (the card beating the least time its work could take) fails the phase
+ROOF_SHARE_MAX = 1.05
+# |predicted − measured| / measured of the memory the step allocates above
+# its arguments: the meta run's live-storage peak against the card's
+# allocator peak less what it held before the step (PERF.md §6 states
+# it, written before the first run)
+ROOF_MEM_BOUND = 0.10
+# phase 9's wkv_chunk calls per prefill: one per layer
+ROOF_WKV_PER_PREFILL = 32
+# one production cell, counted on meta tensors in a process of its own
+ROOF_PRODUCTION_CELL = ("phi4-mini-3.8b", "decode_32k", "single")
+
+
+def _op_diff(a: dict, b: dict) -> dict:
+    """The ops whose [calls, flops, bytes, flops_f32] differ between two
+    op tables."""
+    return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b))
+            if a.get(k) != b.get(k)}
+
+
+def run_roofline(seed: int, card: str) -> dict:
+    """Phase 14: ``rwkv6-3b`` at full width and depth, a 2048-token
+    prefill and a 4-slot decode step, each counted through
+    ``launch.dryrun.run_cell`` on the card and on meta tensors (the plain
+    wkv), then timed (CUDA events, median of ROOF_TIME_REPS). Gates: the
+    card's FLOPs (all, and those at the float32 rate) and bytes equal the
+    meta run's exactly (the wkv counted
+    once a call by its formula); the share bound / time at most
+    ROOF_SHARE_MAX; the step's own memory (above its arguments)
+    predicted within ROOF_MEM_BOUND of the measured one;
+    ROOF_WKV_PER_PREFILL ``wkv_chunk`` launches a
+    prefill and none a decode step. Then ROOF_PRODUCTION_CELL through
+    ``python -m repro_torch.launch.dryrun --one`` in a subprocess:
+    ``ok`` with its collectives counted."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.roofline import HW
+
+    t0 = time.perf_counter()
+    cfg = get_config(ROOF_ARCH)
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
+    params = M.init_params(cfg, gen, "cuda")
+    n_params = M.param_count(cfg)
+    peak = HW().peak_flops
+    cells = {}
+    for name, seq, batch, kind in ROOF_CELLS:
+        shape = ShapeConfig(name, seq, batch, kind)
+        meta = dryrun.run_cell(cfg, shape, "local", device="meta")
+        _zero_launches()
+        run = dryrun.run_cell(cfg, shape, "local", device="cuda",
+                              params=params, seed=seed,
+                              time_reps=ROOF_TIME_REPS)
+        launches = _read_launches()
+        for rec in (meta, run):
+            if not rec.get("ok"):
+                raise AssertionError(f"phase 14 {name}: the {rec['device']} "
+                                     f"cell failed: {rec.get('error')}")
+        counts = {k: (run[k], meta[k]) for k in (
+            "flops_per_device", "f32_flops_per_device", "bytes_per_device")}
+        if any(a != b for a, b in counts.values()):
+            raise AssertionError(
+                f"phase 14 {name}: the card counts {counts} (card, meta); "
+                f"ops that differ: {_op_diff(run['ops'], meta['ops'])}")
+        step_s = run["step_ms"] / 1e3
+        share = run["bound_s"] / step_s
+        if not share <= ROOF_SHARE_MAX:
+            raise AssertionError(f"phase 14 {name}: {step_s * 1e3:.4f} ms "
+                                 f"against a bound of {run['bound_s'] * 1e3:.4f}"
+                                 f" ms: share {share:.3f} > {ROOF_SHARE_MAX}")
+        predicted = meta["memory"]["temp_bytes"]
+        measured = run["measured_temp_bytes"]
+        mem_err = abs(predicted - measured) / measured
+        if not mem_err <= ROOF_MEM_BOUND:
+            raise AssertionError(f"phase 14 {name}: the step's own memory "
+                                 f"predicted {predicted} B, measured "
+                                 f"{measured} B ({mem_err:.4f} > "
+                                 f"{ROOF_MEM_BOUND})")
+        per_step = launches["wkv_chunk"] / run["step_calls"]
+        want = ROOF_WKV_PER_PREFILL if kind == "prefill" else 0
+        if per_step != want or run["ops"].get("kernel.wkv_chunk", [0])[0] \
+                != want or any(v for k, v in launches.items()
+                               if k != "wkv_chunk"):
+            raise AssertionError(f"phase 14 {name}: launches {launches} over "
+                                 f"{run['step_calls']} steps; expected "
+                                 f"{want} wkv_chunk a step")
+        tokens = batch * (seq if kind == "prefill" else 1)
+        cells[name] = dict(
+            shape=[batch, seq], kind=kind, flops=run["flops_per_device"],
+            f32_flops=run["f32_flops_per_device"],
+            bytes=run["bytes_per_device"],
+            terms={k: run[k] for k in ("compute_s", "memory_s",
+                                       "collective_s", "dominant",
+                                       "bound_s")},
+            step_ms=run["step_ms"], share=share, time_ge_bound=step_s >=
+            run["bound_s"], model_flop_share=2.0 * n_params * tokens
+            / step_s / peak, temp_predicted_bytes=predicted,
+            temp_measured_bytes=measured, temp_rel_err=mem_err,
+            peak_predicted_bytes=meta["hbm_per_device"],
+            peak_measured_bytes=run["measured_peak_bytes"],
+            wkv_launches_per_step=per_step,
+            lower_s_card=run["lower_s"], lower_s_meta=meta["lower_s"])
+        _log(f"phase 14 {name}: " + json.dumps(cells[name]))
+    del params
+    _free()
+
+    t = time.perf_counter()
+    out_dir = ROOT / "artifacts" / "dryrun_torch"
+    arch, shp, mesh = ROOF_PRODUCTION_CELL
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--one", arch,
+         shp, mesh, "--dir", str(out_dir)], capture_output=True, text=True,
+        timeout=300, env={**__import__("os").environ,
+                          "PYTHONPATH": str(ROOT / "src")})
+    rec_path = out_dir / (dryrun.cell_name(arch, shp, mesh) + ".json")
+    rec = json.loads(rec_path.read_text()) if rec_path.exists() else {}
+    if r.returncode or not rec.get("ok") or not rec["collectives"]["total"]:
+        raise AssertionError(f"phase 14: the {arch} {shp} {mesh} cell: exit "
+                             f"{r.returncode}, {rec.get('error')}; "
+                             f"{r.stderr[-1500:]}")
+    production = {k: rec[k] for k in (
+        "arch", "shape", "mesh", "chips", "weight_policy",
+        "flops_per_device", "bytes_per_device", "collectives", "memory",
+        "hbm_per_device", "fits_hbm", "dominant", "bound_s", "lower_s")}
+    production["subprocess_s"] = time.perf_counter() - t
+    return dict(card=card, arch=ROOF_ARCH, cells=cells,
+                production=production, phase_s=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -3388,6 +3631,12 @@ def main() -> int:
     training = run_training(args.seed, card)
     _log("training: " + json.dumps(training))
     _log(f"phase 13: {training['phase_s']:.1f} s")
+    _free()
+
+    # 14. the planning layer: counts and the roofline against the card
+    roofline = run_roofline(args.seed, card)
+    _log("roofline: " + json.dumps(roofline))
+    _log(f"phase 14: {roofline['phase_s']:.1f} s")
 
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,

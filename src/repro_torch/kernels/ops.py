@@ -14,7 +14,10 @@
 Each wrapper counts its kernel launches in ``<wrapper>.launches`` (a plain
 integer, incremented under a lock only where the kernel is launched, so
 the count stays exact when several threads launch), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. Under a roofline counter
+(``repro_torch.roofline.counters``) each call also records its kernel's
+work formula (``roofline.work``) once, whichever version runs, and hides
+its body's aten ops from the counter.
 
 Unlike ``repro.kernels.ops`` there is no power-of-two bucketing of the
 batch: eager PyTorch has no jit cache to keep small, so a level of any
@@ -22,7 +25,7 @@ size is one launch at its own shape.
 """
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, wraps
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ import torch
 from repro_torch.analysis.lockdep import TrackedLock
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
+from repro_torch.roofline import work
 
 __all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
            "dct8x8_quant", "idct8x8_dequant", "entropy_decode", "ENTROPY_THREADS",
@@ -107,6 +111,21 @@ def _host_table(qtable) -> np.ndarray:
 _COUNT_LOCK = TrackedLock("kernels.ops.launches")
 
 
+def _counted(name: str, work_of):
+    """Record ``work_of(*args, **kwargs)`` (``roofline.work``'s formula)
+    for each call of the decorated wrapper while a roofline counter is
+    active on this thread, and hide the call's aten ops from it."""
+    def deco(fn):
+        @wraps(fn)
+        def wrapper(*args, **kwargs):
+            if work.active_counter() is None:
+                return fn(*args, **kwargs)
+            with work.kernel_work(name, work_of(*args, **kwargs)):
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
 def _count(wrapper) -> None:
     """One more launch of ``wrapper``'s kernel: the read-modify-write of
     ``wrapper.launches`` under a lock, since pipeline workers launch from
@@ -135,6 +154,8 @@ def _launch(name: str, t: torch.Tensor, *args) -> None:
                            f"{err}")
 
 
+@_counted("jpeg_transform", lambda tiles, *a, **k:
+          work.jpeg_transform_work(tiles.shape))
 def jpeg_transform(tiles: torch.Tensor, qluma=None, qchroma=None,
                    impl: str = "auto") -> torch.Tensor:
     """(N, 3, H, W) RGB tiles → (N, 3, H, W) int32 quantized YCbCr DCT coefs.
@@ -163,6 +184,8 @@ def jpeg_transform(tiles: torch.Tensor, qluma=None, qchroma=None,
 jpeg_transform.launches = 0
 
 
+@_counted("downsample2x2", lambda img, *a, **k:
+          work.downsample2x2_work(img.shape))
 def downsample2x2(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """One pyramid step: (C, H, W) → (C, H//2, W//2) float32.
 
@@ -187,6 +210,8 @@ def downsample2x2(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
 downsample2x2.launches = 0
 
 
+@_counted("jpeg_inverse", lambda coef, *a, **k:
+          work.jpeg_inverse_work(coef.shape))
 def jpeg_inverse(coef: torch.Tensor, qluma=None, qchroma=None,
                  impl: str = "auto") -> torch.Tensor:
     """(N, 3, H, W) int32 quantized YCbCr DCT coefs → (N, 3, H, W) uint8 RGB.
@@ -214,6 +239,8 @@ def jpeg_inverse(coef: torch.Tensor, qluma=None, qchroma=None,
 jpeg_inverse.launches = 0
 
 
+@_counted("rgb2ycbcr", lambda img, *a, **k:
+          work.rgb2ycbcr_work(img.shape))
 def rgb2ycbcr(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """(3, H, W) RGB → (3, H, W) float32 level-shifted Y, Cb, Cr planes.
 
@@ -236,6 +263,8 @@ def rgb2ycbcr(img: torch.Tensor, impl: str = "auto") -> torch.Tensor:
 rgb2ycbcr.launches = 0
 
 
+@_counted("dct8x8_quant", lambda plane, *a, **k:
+          work.dct8x8_quant_work(plane.shape))
 def dct8x8_quant(plane: torch.Tensor, qtable=None,
                  impl: str = "auto") -> torch.Tensor:
     """(H, W) float32 level-shifted plane → (H, W) int32 quantized DCT coefs.
@@ -277,6 +306,9 @@ def idct8x8_dequant(coef: torch.Tensor, qtable) -> torch.Tensor:
 ENTROPY_THREADS = 256
 
 
+@_counted("entropy_decode", lambda buf, offs, nbits, lut, H, W, *a, **k:
+          work.entropy_decode_work(offs.numel(), H, W, buf.numel(),
+                                   lut.numel()))
 def entropy_decode(buf: torch.Tensor, offs: torch.Tensor,
                    nbits: torch.Tensor, lut: torch.Tensor, H: int, W: int,
                    impl: str = "auto", stats: torch.Tensor | None = None):
@@ -367,7 +399,12 @@ def _check_aligned(t: torch.Tensor, what: str) -> None:
     """The wkv kernel moves r, k, v, logw and its scratch in 16-byte pieces
     (``cp.async``), so their data must start on a 16-byte boundary: a
     contiguous view at an offset that is not a multiple of 4 floats would
-    fault on the card and poison its context."""
+    fault on the card and poison its context. A fake tensor (the dry run)
+    has no data to check."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if isinstance(t, FakeTensor):
+        return
     if t.data_ptr() % 16:
         raise ValueError(f"{what} must start on a 16-byte boundary (the "
                          f"kernel reads it in 16-byte pieces); this view "
@@ -423,10 +460,12 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises; there is no fallback to the plain version.
 
     The kernel writes its outputs through raw pointers, so they carry no
-    autograd history: where it would launch on inputs that require grad
-    while grad mode is on, the call goes through :class:`WkvChunk`, whose
-    forward is this kernel and whose backward is the plain chunked form's
-    gradient.
+    autograd history: with ``impl="auto"``, on inputs that require grad
+    while grad mode is on, the call goes through :class:`WkvChunk` on
+    every device, whose forward is this function (the kernel, or on the
+    CPU its plain version) and whose backward is the plain chunked form's
+    gradient: one path, so a step counts the same work on the card and on
+    the CPU (``roofline.counters``).
     """
     if r.dim() != 4:
         raise ValueError(f"wkv_chunk: r must be (B, S, H, K), got "
@@ -453,11 +492,18 @@ def wkv_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 f"contiguous={t.is_contiguous()}")
         for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
             _check_aligned(t, f"wkv_chunk: {name}")
-    if not launch:
-        return ref.wkv_chunked_ref(r, k, v, logw, u, state)
-    if torch.is_grad_enabled() and any(
+    if impl == "auto" and torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, logw, u, state)):
         return WkvChunk.apply(r, k, v, logw, u, state)
+    with work.kernel_work("wkv_chunk", work.wkv_chunk_work(B, S, H, K)):
+        if not launch:
+            return ref.wkv_chunked_ref(r, k, v, logw, u, state)
+        return _wkv_launch(r, k, v, logw, u, state, scratch)
+
+
+def _wkv_launch(r, k, v, logw, u, state, scratch):
+    """One ``wkv_chunk`` kernel call on the card (:func:`wkv_chunk`)."""
+    B, S, H, K = r.shape
     out = torch.empty_like(r)
     final = torch.empty_like(state)
     if B * H == 0:
@@ -483,7 +529,7 @@ wkv_chunk.launches = 0
 class WkvChunk(torch.autograd.Function):
     """:func:`wkv_chunk` with a gradient: ``WkvChunk.apply(r, k, v, logw,
     u, state) -> (out, final_state)``; :func:`wkv_chunk` comes
-    here by itself when it would launch on inputs that require grad.
+    here by itself on inputs that require grad.
 
     The forward is :func:`wkv_chunk`, run with grad off (on a CUDA tensor
     the kernel, counted once in ``wkv_chunk.launches``; on the CPU its

@@ -56,6 +56,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
+
 __all__ = [
     "JPEG_LUMA_Q", "JPEG_CHROMA_Q", "ZIGZAG", "dct_matrix",
     "ycbcr_polynomials", "ycbcr_inverse_polynomials", "quant_tables",
@@ -645,6 +647,8 @@ def wkv_chunked_ref(r, k, v, logw, u, state, chunk: int = 64, sub: int = 16):
     outs = []
     for c0 in range(0, S, Q):
         rc, kc, vc, lw = (t[:, c0:c0 + Q] for t in (r, k, v, logw))
+        rc = shd.constrain(rc, "batch", "", "", "")
+        kc = shd.constrain(kc, "batch", "", "", "")
         L = torch.cumsum(lw, dim=1)  # inclusive log-decay
         Lex = L - lw  # exclusive
         Lend = L[:, -1]  # (B, H, K)

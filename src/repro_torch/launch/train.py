@@ -10,9 +10,9 @@ device; the batches are ``data.TokenDataset``'s shards (seed 0, shard =
 step), the vlm and audio families conditioned on zeros as the reference
 feeds them. The loop is the reference's: the train step
 (``train.make_train_step``), async checkpoints every ``--ckpt-every``
-steps and at the end, restore-on-start with ``--resume``. The production
-mesh (``--multi-pod``) waits for the port's ``sharding/`` (ROADMAP A6,
-A9.3) and is refused. :func:`run` returns the per-step losses and times
+steps and at the end, restore-on-start with ``--resume``. Training on
+the production mesh (``--multi-pod``) needs more than one card (ROADMAP
+A6) and is refused. :func:`run` returns the per-step losses and times
 and the final state to a caller; :func:`main` prints them.
 """
 import argparse
@@ -39,9 +39,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="the production mesh: not in the port yet")
     args = ap.parse_args(argv)
     if args.multi_pod:
-        ap.error("--multi-pod: the port trains on one device; the "
-                 "production mesh waits for its sharding/ (ROADMAP A6, "
-                 "A9.3)")
+        ap.error("--multi-pod: the port trains on one device; training "
+                 "under the production mesh's sharding waits for ROADMAP "
+                 "A6")
     return args
 
 

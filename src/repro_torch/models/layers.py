@@ -21,10 +21,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as shd
 from repro_torch.models.params import UNWRITTEN, ParamDef
 
 __all__ = [
     "NEG_INF",
+    "f32",
     "rms_norm",
     "apply_rope",
     "blocked_attention",
@@ -51,12 +53,19 @@ NEG_INF = -1.0e30
 # --------------------------------------------------------------------------
 # norms / rope
 # --------------------------------------------------------------------------
+def f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` at one of the model's float32 points: float32, except that a
+    float64 tensor stays float64 (a float64 run is the arbiter of float32
+    rounding, ``tools/train_cpu_gap.py``)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
              plus_one: bool = False) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = f32(x)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    w = w.float()
+    w = f32(w)
     if plus_one:
         w = w + 1.0
     return (x * w).to(dt)
@@ -97,12 +106,18 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     accumulator in float32; a key count that is not a multiple of the
     chunk is padded with keys at position ``UNWRITTEN`` (masked out).
     With ``H > KV`` (GQA, MQA) the queries are grouped as (KV, G) and the
-    keys are not broadcast: the reference's path on one device.
+    keys are not broadcast: the reference's path on one device. Under a
+    mesh whose ``model`` axis divides H, the keys are broadcast to all H
+    heads so that the heads can be sharded over it (the reference's
+    ``expand_kv``).
     """
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = D**-0.5
+    mesh = shd.current_mesh()
+    tp = shd.axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+    expand_kv = G > 1 and tp > 1 and H % tp == 0
     chunk = min(chunk, Skv)
     if Skv % chunk:  # pad KV to a chunk multiple with masked-out slots
         pad = chunk - Skv % chunk
@@ -119,8 +134,13 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     for j in range(n_chunks):
         sl = slice(j * chunk, (j + 1) * chunk)
         kj, vj, pj = k[:, sl].float(), v[:, sl].float(), kv_pos[:, sl]
-        if G == 1:
+        if expand_kv:  # broadcast grouped KV to all H heads
+            kj = kj.repeat_interleave(G, dim=2)
+            vj = vj.repeat_interleave(G, dim=2)
+            kj = shd.constrain(kj, "batch", "", "heads", "")
+        if expand_kv or G == 1:
             s = torch.einsum("bqhd,bchd->bhqc", q32, kj) * scale
+            s = shd.constrain(s, "batch", "heads", "seq", "")
         else:  # grouped path: no KV broadcast
             qg = q32.reshape(B, Sq, KV, G, D)
             s = torch.einsum("bqkgd,bckd->bkgqc", qg, kj) * scale
@@ -137,7 +157,7 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
         p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        if G == 1:
+        if expand_kv or G == 1:
             pv = torch.einsum("bhqc,bchd->bqhd", p, vj)
         else:
             pg = p.reshape(B, KV, G, Sq, -1)
@@ -169,6 +189,9 @@ def attn_project_q(p, cfg, x, positions, *, rope: bool = True):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    # TP over heads when divisible; context-parallel fallback over seq otherwise
+    if q.shape[1] > 1:
+        q = shd.constrain(q, "batch", "seq", "heads", "head_dim")
     return q
 
 
@@ -181,7 +204,8 @@ def attn_project_kv(p, cfg, x, positions, *, rope: bool = True):
 
 
 def attn_out(p, cfg, ctx):
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype))
+    out = torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype))
+    return shd.constrain(out, "batch", "seq", "embed")
 
 
 def self_attention(p, cfg, x, positions, *, window: int = 0):
@@ -255,15 +279,15 @@ def decode_self_attention(p, cfg, x1, k_cache, v_cache, kv_pos, pos, *,
     if k_scale is not None:
         kq, ks = quantize_kv(k_new[:, 0])
         vq, vs = quantize_kv(v_new[:, 0])
-        k_cache[rows, slot] = kq
-        v_cache[rows, slot] = vq
-        k_scale[rows, slot] = ks.to(k_scale.dtype)
-        v_scale[rows, slot] = vs.to(v_scale.dtype)
+        shd.index_write(k_cache, (rows, slot), kq)
+        shd.index_write(v_cache, (rows, slot), vq)
+        shd.index_write(k_scale, (rows, slot), ks.to(k_scale.dtype))
+        shd.index_write(v_scale, (rows, slot), vs.to(v_scale.dtype))
         kf = k_cache.float() * k_scale[..., None]
         vf = v_cache.float() * v_scale[..., None]
     else:
-        k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
+        shd.index_write(k_cache, (rows, slot), k_new[:, 0].to(k_cache.dtype))
+        shd.index_write(v_cache, (rows, slot), v_new[:, 0].to(v_cache.dtype))
         kf = k_cache.float()
         vf = v_cache.float()
 
@@ -271,24 +295,37 @@ def decode_self_attention(p, cfg, x1, k_cache, v_cache, kv_pos, pos, *,
     KV = k_cache.shape[2]
     G = H // KV
     qr = q.reshape(B, KV, G, hd).float()
-    s = torch.einsum("bkgd,bwkd->bkgw", qr, kf)
-    s = s * hd**-0.5
     valid = kv_pos <= pos[:, None]  # (B, W); free slots are UNWRITTEN
     if window:
         valid = valid & (pos[:, None] - kv_pos < window)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    probs = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bkgw,bwkd->bkgd", probs, vf)
+
+    def attend(qr, kf, vf, valid):
+        s = torch.einsum("bkgd,bwkd->bkgw", qr, kf)
+        s = s * hd**-0.5
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        probs = torch.softmax(s, dim=-1)
+        return (torch.einsum("bkgw,bwkd->bkgd", probs, vf),)
+
+    # per (batch row, KV head): on the local shards under a mesh
+    ctx, = shd.local_call(attend, (qr, kf, vf, valid), _DECODE_IN,
+                          (_DECODE_Q,))
     ctx = ctx.reshape(B, 1, H, hd).to(x1.dtype)
     return attn_out(p, cfg, ctx), k_cache, v_cache, k_scale, v_scale
+
+
+# decode attention's logical axes on the local shards: whole caches, per
+# batch row and KV head
+_DECODE_Q = ("batch", "heads", "", "")
+_DECODE_IN = (_DECODE_Q, ("batch", "", "heads", ""),
+              ("batch", "", "heads", ""), ("batch", ""))
 
 
 def write_kv_pos(kv_pos, pos, *, window: int = 0):
     """Record this decode step's positions in the shared slot book-keeping
     (B, W), in place. Returns ``kv_pos``."""
     B, W = kv_pos.shape
-    kv_pos[torch.arange(B, device=pos.device), _slot(pos, W, window)] = \
-        pos.to(kv_pos.dtype)
+    shd.index_write(kv_pos, (torch.arange(B, device=pos.device),
+                             _slot(pos, W, window)), pos.to(kv_pos.dtype))
     return kv_pos
 
 
@@ -327,7 +364,9 @@ def mlp_apply(p, cfg, x):
         u = torch.einsum("bsd,df->bsf", x, p["wu"].to(dt))
         h = torch.square(torch.relu(u)) if cfg.mlp_type == "relu2" else \
             _gelu(u)
-    return torch.einsum("bsf,fd->bsd", h, p["wd"].to(dt))
+    h = shd.constrain(h, "batch", "seq", "mlp")
+    out = torch.einsum("bsf,fd->bsd", h, p["wd"].to(dt))
+    return shd.constrain(out, "batch", "seq", "embed")
 
 
 # --------------------------------------------------------------------------
@@ -349,12 +388,13 @@ def embed_apply(p, cfg, tokens):
         # JAX first rounds to the array's dtype (45.25 for 2048 in bf16);
         # torch would keep it at full precision inside the multiply
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype))
-    return x
+    return shd.constrain(x, "batch", "seq", "embed")
 
 
 def logits_apply(p, cfg, x):
     table = p.get("head", p["table"]).to(x.dtype)
-    return torch.einsum("bsd,vd->bsv", x, table)
+    logits = torch.einsum("bsd,vd->bsv", x, table)
+    return shd.constrain(logits, "batch", "seq", "vocab")
 
 
 def softmax_xent_chunked(p, cfg, x, labels, mask=None):
@@ -369,13 +409,17 @@ def softmax_xent_chunked(p, cfg, x, labels, mask=None):
         mask = torch.ones((B, S), dtype=x.dtype, device=x.device)
 
     def chunk_nll(xi, li, mi):
-        logits = logits_apply(p, cfg, xi).float()
+        logits = f32(logits_apply(p, cfg, xi))
+        # the port's own: under a mesh, whole rows of the vocab for the
+        # gather (DTensor's masked gather of a vocab-sharded row fails)
+        logits = shd.constrain(logits, "batch", "seq", "")
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
         return ((lse - gold) * mi).sum(), mi.sum()
 
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    tot = torch.zeros((), dtype=acc, device=x.device)
+    cnt = torch.zeros((), dtype=acc, device=x.device)
     for j in range(S // C):
         sl = slice(j * C, (j + 1) * C)
         args = (x[:, sl], labels[:, sl], mask[:, sl])

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.models.params import ParamDef
 
 __all__ = ["mamba2_defs", "mamba2_apply", "mamba2_decode", "mamba2_state_defs"]
@@ -81,6 +82,7 @@ def mamba2_apply(p, cfg, x, *, chunk: int = 64, return_state: bool = False):
     xs = F.silu(_causal_conv(xr, p["conv_x"].to(xr.dtype)))
     Bp = F.silu(_causal_conv(Br, p["conv_B"].to(Br.dtype)))
     Cp = F.silu(_causal_conv(Cr, p["conv_C"].to(Cr.dtype)))
+    xs = shd.constrain(xs, "batch", "seq", "tp")
 
     Q = min(chunk, S)
     if S % Q:
@@ -90,6 +92,7 @@ def mamba2_apply(p, cfg, x, *, chunk: int = 64, return_state: bool = False):
     dt = F.softplus(dt.float() + p["dt_bias"].float())
 
     xh = xs.reshape(B, NC, Q, H, P).float()
+    xh = shd.constrain(xh, "batch", "", "", "", "")
     Bc = Bp.reshape(B, NC, Q, N).float()
     Cc = Cp.reshape(B, NC, Q, N).float()
     dtc = dt.reshape(B, NC, Q, H)
@@ -146,7 +149,8 @@ def _gate_norm_out(p, cfg, y, z):
     y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + cfg.norm_eps)
     y = y * p["gnorm"].float()
     y = y.to(z.dtype)
-    return torch.einsum("bse,ed->bsd", y, p["wo"].to(z.dtype))
+    out = torch.einsum("bse,ed->bsd", y, p["wo"].to(z.dtype))
+    return shd.constrain(out, "batch", "seq", "embed")
 
 
 def mamba2_decode(p, cfg, x1, state):

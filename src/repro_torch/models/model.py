@@ -8,6 +8,7 @@
   and states
 * ``lm_loss(params, cfg, batch)``    — next-token cross-entropy (+ MoE aux)
 * ``cache_defs`` / ``init_cache``     — the decode state
+* ``abstract_params`` / ``abstract_cache`` — both as meta tensors
 * ``decode_step(params, cfg, cache, token, pos)`` — one serving step
 * ``prefill(params, cfg, tokens, cond=..., max_len=...)`` — prompt → cache
 
@@ -44,16 +45,18 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import sharding as shd
 from repro_torch.models import layers as lyr
 from repro_torch.models import mamba2 as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
-from repro_torch.models.params import (ParamDef, count_params, materialize,
-                                       tree_map)
+from repro_torch.models.params import (UNWRITTEN, ParamDef, abstractify,
+                                       count_params, materialize, tree_map)
 
 __all__ = [
     "model_defs",
     "init_params",
+    "abstract_params",
     "param_count",
     "active_param_count",
     "zamba_groups",
@@ -61,6 +64,7 @@ __all__ = [
     "lm_loss",
     "cache_defs",
     "init_cache",
+    "abstract_cache",
     "decode_step",
     "prefill",
 ]
@@ -157,6 +161,11 @@ def init_params(cfg, generator: torch.Generator, device="cuda"):
     """Random parameters by the reference's init rules, drawn from
     ``generator`` (on ``device``)."""
     return materialize(model_defs(cfg), generator, device)
+
+
+def abstract_params(cfg):
+    """The parameters as meta tensors (``params.abstractify``)."""
+    return abstractify(model_defs(cfg))
 
 
 def param_count(cfg) -> int:
@@ -429,8 +438,24 @@ def cache_defs(cfg, batch: int, max_len: int) -> dict:
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
-    """Materialized zero cache (``kv_pos`` slots marked ``UNWRITTEN``)."""
-    return materialize(cache_defs(cfg, batch, max_len), None, device)
+    """Materialized zero cache (``kv_pos`` slots marked ``UNWRITTEN``);
+    under a mesh, DTensors of the policy's placements
+    (``sharding.placed``)."""
+    defs = cache_defs(cfg, batch, max_len)
+    mesh = shd.current_mesh()
+    if mesh is None or mesh.size() == 1:
+        return materialize(defs, None, device)
+
+    def make(d):
+        fill = UNWRITTEN if d.init == "unwritten" else 0
+        return shd.placed(d, lambda shape, dtype, dev: torch.full(
+            shape, fill, dtype=dtype, device=dev), device)
+    return tree_map(make, defs)
+
+
+def abstract_cache(cfg, batch: int, max_len: int):
+    """The decode cache as meta tensors (``params.abstractify``)."""
+    return abstractify(cache_defs(cfg, batch, max_len))
 
 
 # --------------------------------------------------------------------------
@@ -444,7 +469,9 @@ def _store_states(store: dict, states: list) -> None:
     in float32) is replaced in ``store`` by the computed one."""
     for key, buf in store.items():
         new = [st[key] for st in states]
-        if buf.dtype == new[0].dtype:
+        if buf.dtype == new[0].dtype and hasattr(buf, "to_local"):
+            buf.copy_(torch.stack(new))  # a DTensor has no stack(out=)
+        elif buf.dtype == new[0].dtype:
             torch.stack(new, out=buf)
         else:
             store[key] = torch.stack(new)
@@ -544,6 +571,11 @@ def decode_step(params, cfg, cache, token, pos):
 
 # --------------------------------------------------------------------------
 # prefill → cache
+def _head(keep: int) -> tuple:
+    """The index of a (L, B, W, ...) cache's first ``keep`` slots."""
+    return (slice(None), slice(None), slice(None, keep))
+
+
 # --------------------------------------------------------------------------
 def prefill(params, cfg, tokens, *, cond=None, max_len: int | None = None,
             impl: str = "auto"):
@@ -580,11 +612,12 @@ def prefill(params, cfg, tokens, *, cond=None, max_len: int | None = None,
                 src = src[:, :, order]
             if _kv_int8(cfg):  # only k and v: hybrids have no int8 cache
                 q, scale = lyr.quantize_kv(src)
-                cache[side][:, :, :keep] = q
-                cache[side + "_scale"][:, :, :keep] = scale
+                shd.index_write(cache[side], _head(keep), q)
+                shd.index_write(cache[side + "_scale"], _head(keep), scale)
             else:
-                cache[side][:, :, :keep] = src.to(cache[side].dtype)
-        cache["kv_pos"][:, :keep] = pos_tail[None]
+                shd.index_write(cache[side], _head(keep),
+                                src.to(cache[side].dtype))
+        shd.index_write(cache["kv_pos"], _head(keep)[1:], pos_tail[None])
     for side in ("cross_k", "cross_v"):
         if side in cache:
             cache[side] = parts[side].to(cache[side].dtype)

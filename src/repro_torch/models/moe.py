@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.models.params import ParamDef
 
 __all__ = ["moe_defs", "moe_apply", "router_logits", "top_k"]
@@ -87,11 +88,13 @@ def _moe_apply(p, cfg, x):
     rows = torch.arange(B, device=dev)[:, None]
     xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
     xe = xpad[rows, src[:, :E * C]].reshape(B, E, C, D)
+    xe = shd.constrain(xe, "batch", "", "", "embed")
 
     # ---- expert FFN (batched over experts) -------------------------------
     g = torch.einsum("becd,edf->becf", xe, p["wg"].to(dt))
     u = torch.einsum("becd,edf->becf", xe, p["wu"].to(dt))
     h = F.silu(g) * u
+    h = shd.constrain(h, "batch", "", "", "mlp")
     y = torch.einsum("becf,efd->becd", h, p["wd"].to(dt))
 
     # ---- combine ----------------------------------------------------------
@@ -100,4 +103,4 @@ def _moe_apply(p, cfg, x):
     gathered = yflat[rows, slot]  # (B, S*K, D)
     gathered = gathered * (fw * keep.to(dt))[..., None]
     out = gathered.reshape(B, S, K, D).sum(dim=2)
-    return out, aux
+    return shd.constrain(out, "batch", "seq", "embed"), aux

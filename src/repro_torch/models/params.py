@@ -3,7 +3,9 @@
 Every model declares its parameters as a nested dict of ``ParamDef``
 (shape + logical axis names + dtype), as ``repro.models.params`` does. From
 that one declaration come the materialized tensors (:func:`materialize`)
-and the analytic parameter count (:func:`count_params`). The nested dicts
+the abstract tensors the dry run counts against (:func:`abstractify`:
+meta tensors, no memory allocated) and the analytic parameter count
+(:func:`count_params`). The nested dicts
 are walked in sorted key order, the order ``jax.tree_util`` flattens them
 in.
 """
@@ -16,8 +18,8 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-__all__ = ["ParamDef", "materialize", "count_params", "tree_defs",
-           "tree_map", "UNWRITTEN"]
+__all__ = ["ParamDef", "materialize", "abstractify", "count_params",
+           "tree_defs", "tree_map", "UNWRITTEN"]
 
 # the position a KV cache slot holds before anything is written to it (and
 # attention's padded key slots): above every real position
@@ -126,6 +128,13 @@ def materialize(defs, generator: torch.Generator, device,
             node = node.setdefault(key, {})
         node[path[-1]] = make(d)
     return out
+
+
+def abstractify(defs):
+    """A tree of meta tensors with each leaf's shape and dtype: no memory
+    is allocated."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
 
 
 def count_params(defs) -> int:

@@ -21,11 +21,14 @@ formulation; LayerNorms are RMSNorm, as in the reference.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import f32, rms_norm
 from repro_torch.models.params import ParamDef
 
 __all__ = [
@@ -38,6 +41,13 @@ __all__ = [
 ]
 
 N_MIX = 5  # w, k, v, r, g token-shift mixes
+# the wkv's logical axes on the local shards: whole sequences, per head
+_BSHK = ("batch", "", "heads", "")
+_STATE = ("batch", "heads", "", "")
+_WKV_IN = (_BSHK, _BSHK, _BSHK, _BSHK, ("heads", ""), _STATE)
+_WKV_OUT = (_BSHK, _STATE)
+_DEC_X = ("batch", "heads", "")
+_DEC_IN = (_DEC_X, _DEC_X, _DEC_X, _DEC_X, ("heads", ""), _STATE)
 
 
 # --------------------------------------------------------------------------
@@ -123,6 +133,8 @@ def _ddlerp(p, x, xprev):
     xx = xprev - x
     xxx = x + xx * p["mu_x"].to(dt)
     lora = torch.tanh(torch.einsum("bsd,dr->bsr", xxx, p["tm_w1"].to(dt)))
+    # the port's own: DTensor cannot split a mesh-sharded last dim in five
+    lora = shd.constrain(lora, "batch", "seq", "")
     lora = lora.reshape(B, S, N_MIX, -1)
     deltas = torch.einsum("bsmr,mrd->bsmd", lora, p["tm_w2"].to(dt))
     mixed = x[:, :, None] + xx[:, :, None] * (p["mu5"].to(dt)[None, None]
@@ -131,8 +143,8 @@ def _ddlerp(p, x, xprev):
 
 
 def _decay(p, xw):
-    ww = p["w0"].float() + torch.einsum(
-        "bsd,dr->bsr", xw.float(), p["td_w1"].float()) @ p["td_w2"].float()
+    ww = f32(p["w0"]) + torch.einsum(
+        "bsd,dr->bsr", f32(xw), f32(p["td_w1"])) @ f32(p["td_w2"])
     return -torch.exp(torch.clamp(ww, -20.0, 20.0))  # log w  (strictly < 0)
 
 
@@ -154,19 +166,23 @@ def _time_mix(p, cfg, x, xprev, wkv_state, *, decode: bool,
     v = torch.einsum("bsd,de->bse", xv, p["wv"].to(dt)).reshape(B, S, H, K)
     g = F.silu(torch.einsum("bsd,de->bse", xg, p["wg"].to(dt)))
     logw = _decay(p, xw).reshape(B, S, H, K)
-    r32, k32, v32 = (t.float().contiguous() for t in (r, k, v))
-    u = p["u"].float().contiguous()
+    r32, k32, v32 = (f32(t).contiguous() for t in (r, k, v))
+    u = f32(p["u"]).contiguous()
     if decode:
-        y, wkv_state = wkv_decode(r32[:, 0], k32[:, 0], v32[:, 0],
-                                  logw[:, 0], u, wkv_state)
+        # per (batch row, head): on the local shards under a mesh
+        y, wkv_state = shd.local_call(
+            wkv_decode, (r32[:, 0], k32[:, 0], v32[:, 0], logw[:, 0], u,
+                         wkv_state), _DEC_IN, (_DEC_X, _STATE))
         y = y[:, None]
     else:
+        r32 = shd.constrain(r32, "batch", "seq", "heads", "head_dim")
         args = (r32, k32, v32, logw.contiguous(), u, wkv_state.contiguous())
-        y, wkv_state = impl(*args) if callable(impl) else \
-            ops.wkv_chunk(*args, impl=impl)
+        wkv = impl if callable(impl) else partial(ops.wkv_chunk, impl=impl)
+        # per (batch, head): run on the local shards under a mesh
+        y, wkv_state = shd.local_call(wkv, args, _WKV_IN, _WKV_OUT)
     y = _head_norm(p, cfg, y).to(dt) * g
     out = torch.einsum("bse,ed->bsd", y, p["wo"].to(dt))
-    return out, wkv_state
+    return shd.constrain(out, "batch", "seq", "embed"), wkv_state
 
 
 def _channel_mix(p, cfg, x, xprev):
@@ -176,9 +192,10 @@ def _channel_mix(p, cfg, x, xprev):
     xr = x + xx * p["mu_r"].to(dt)
     kk = torch.einsum("bsd,df->bsf", xk, p["cm_k"].to(dt))
     kk = torch.square(torch.relu(kk))
+    kk = shd.constrain(kk, "batch", "seq", "mlp")
     kv = torch.einsum("bsf,fd->bsd", kk, p["cm_v"].to(dt))
     rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["cm_r"].to(dt)))
-    return rr * kv
+    return shd.constrain(rr * kv, "batch", "seq", "embed")
 
 
 def _shifted(x, first):
@@ -196,7 +213,8 @@ def rwkv_block(p, cfg, x, state=None, *, impl: str = "auto"):
     B, S, D = x.shape
     H, K = cfg.num_heads, cfg.head_dim
     if state is None:
-        wkv0 = torch.zeros((B, H, K, K), dtype=torch.float32, device=x.device)
+        wkv0 = torch.zeros((B, H, K, K), device=x.device,
+                           dtype=torch.promote_types(x.dtype, torch.float32))
         sh_tm = torch.zeros((B, D), dtype=x.dtype, device=x.device)
         sh_cm = torch.zeros((B, D), dtype=x.dtype, device=x.device)
     else:

@@ -13,7 +13,7 @@ The entry names are the leaves' key paths joined by ``/``, as
 a checkpoint written by either package restores in the other. Writes are
 atomic (tmp dir + rename), so a crash mid-save never corrupts the restore
 point. :func:`restore_checkpoint` places every leaf on one ``device``; the
-reference's re-sharding onto another mesh waits for ROADMAP A6/A9.3.
+reference's re-sharding onto another mesh waits for ROADMAP A6.
 
 ``AsyncCheckpointer`` overlaps serialization with the next train step:
 the device→host copy happens at ``save()``, the disk I/O on a worker
@@ -98,10 +98,16 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 
 
 def restore_checkpoint(ckpt_dir: str | Path, like_state, *, device="cuda",
-                       step: int | None = None):
+                       step: int | None = None, shardings=None):
     """Restore into the structure of ``like_state`` (nested dicts whose
     leaves have ``.shape`` and ``.dtype``: tensors or ParamDefs), each
-    leaf in that dtype on ``device``. Returns ``(state, step)``."""
+    leaf in that dtype on ``device``. Returns ``(state, step)``.
+    ``shardings`` (the reference's re-shard onto another mesh) is refused
+    until the port trains on more than one card (ROADMAP A6)."""
+    if shardings is not None:
+        raise NotImplementedError("restore_checkpoint(shardings=): the "
+                                  "re-shard onto another mesh waits for "
+                                  "ROADMAP A6")
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)

@@ -83,7 +83,21 @@ def lr_at(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def _pieces(t: torch.Tensor):
+    """``t`` flattened in ``PIECE``-element pieces; a DTensor (a sharded
+    step, ``launch.dryrun``) whole, as its shards do not flatten."""
+    if hasattr(t, "to_local"):
+        return (t,)
     return t.reshape(-1).split(PIECE)
+
+
+def _local(t, like):
+    """The local shard of a DTensor ``t`` placed as ``like``; a plain
+    tensor as it is."""
+    if not hasattr(t, "to_local"):
+        return t
+    if tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -109,10 +123,14 @@ def adamw_update(tc: TrainConfig, params, grads, opt):
     lr = lr_at(tc, count)
     bc1 = 1 - tc.b1 ** count.float()
     bc2 = 1 - tc.b2 ** count.float()
+    if hasattr(gnorm, "full_tensor"):  # a sharded step: on every shard
+        scale, lr, bc1, bc2 = (x.full_tensor() for x in (scale, lr, bc1, bc2))
     flat = [t for _, t in tree_defs(params)]
     rest = ([t for _, t in tree_defs(tree)]
             for tree in (grads, opt["m"], opt["v"]))
     for p, g, m, v in zip(flat, *rest):
+        g, m, v = (_local(t, p) for t in (g, m, v))
+        p = _local(p, p)
         for pp, gp, mp, vp in zip(p.view(-1).split(PIECE), _pieces(g),
                                   m.view(-1).split(PIECE),
                                   v.view(-1).split(PIECE)):

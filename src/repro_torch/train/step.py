@@ -9,26 +9,32 @@ scaled by ``1/k``, as the reference's ``lax.scan`` sums it (letting
 ``.grad`` accumulate would sum in bf16). ``int8_ef`` compression sits
 between the gradient and the update.
 
-The reference's ``state_shardings``, ``batch_shardings`` and
-``abstract_train_state`` wait for the port's ``sharding/`` (ROADMAP A9.3):
-this module trains on one device.
+``abstract_train_state`` builds the state as meta tensors, and
+``state_shardings`` / ``batch_shardings`` give the policy's DTensor
+placements (``repro_torch.sharding``), for the dry run
+(``launch.dryrun``); the trainer itself runs on one device.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.comms.compress import ef_compress, ef_init
 from repro_torch.models import model as M
-from repro_torch.models.params import ParamDef, tree_defs, tree_map
+from repro_torch.models.params import (ParamDef, abstractify, tree_defs,
+                                       tree_map)
 from repro_torch.train.optim import (TrainConfig, adamw_update, init_opt,
                                      opt_defs)
 
 __all__ = [
     "train_state_defs",
     "init_train_state",
+    "abstract_train_state",
     "make_train_step",
     "batch_defs",
     "loss_and_grads",
+    "state_shardings",
+    "batch_shardings",
 ]
 
 
@@ -51,6 +57,11 @@ def init_train_state(cfg, tc: TrainConfig, generator: torch.Generator,
     if tc.compress == "int8_ef":
         state["ef"] = ef_init(params)
     return state
+
+
+def abstract_train_state(cfg, tc: TrainConfig) -> dict:
+    """The train state as meta tensors (``params.abstractify``)."""
+    return abstractify(train_state_defs(cfg, tc))
 
 
 def batch_defs(cfg, global_batch: int, seq_len: int) -> dict:
@@ -110,7 +121,9 @@ def make_train_step(cfg, tc: TrainConfig):
         acc = tree_map(lambda p: torch.zeros(
             p.shape, dtype=torch.float32, device=p.device), params)
         for j in range(k):
-            mb = {key: x[j * n:(j + 1) * n] for key, x in batch.items()}
+            mb = {key: shd.constrain(x[j * n:(j + 1) * n], "batch",
+                                     *("",) * (x.ndim - 1))
+                  for key, x in batch.items()}
             loss, g = loss_and_grads(params, cfg, mb)
             tree_map(lambda a, b: a.add_(b.float()), acc, g)
             loss_acc = loss_acc + loss
@@ -131,3 +144,11 @@ def make_train_step(cfg, tc: TrainConfig):
         return new_state, metrics
 
     return step
+
+
+def state_shardings(cfg, tc: TrainConfig, mesh):
+    return shd.param_specs(train_state_defs(cfg, tc), mesh)
+
+
+def batch_shardings(cfg, global_batch: int, seq_len: int, mesh):
+    return shd.param_specs(batch_defs(cfg, global_batch, seq_len), mesh)

@@ -644,3 +644,32 @@ def test_wkv_function_on_card_launches_and_matches_plain(cuda_device, shape):
     assert _rel(out, out2) < WKV_BOUND and _rel(state, state2) < WKV_BOUND
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _counted(fn):
+    from repro_torch.roofline import analyze_step
+    r = analyze_step(fn)
+    torch.cuda.synchronize()
+    return r["flops"], r["bytes"], r["ops"]
+
+
+def test_counter_kernel_equals_plain_wkv(cuda_device):
+    """A roofline counter run of ``wkv_chunk`` counts the same work with
+    the kernel as with the plain version: its formula, once."""
+    a = _wkv_inputs((1, 2048, 40, 64), 2.0, 12, cuda_device)
+    n0 = ops.wkv_chunk.launches
+    kernel = _counted(lambda: ops.wkv_chunk(*a))
+    assert ops.wkv_chunk.launches == n0 + 1
+    plain = _counted(lambda: ops.wkv_chunk(*a, impl="ref"))
+    assert kernel == plain
+    assert list(kernel[2]) == ["kernel.wkv_chunk"]
+
+
+def test_counter_kernel_equals_plain_transform(cuda_device):
+    tiles = torch.from_numpy(_slide_tiles(3, 1024)).to(cuda_device)
+    n0 = ops.jpeg_transform.launches
+    kernel = _counted(lambda: ops.jpeg_transform(tiles))
+    assert ops.jpeg_transform.launches == n0 + 1
+    plain = _counted(lambda: ops.jpeg_transform(tiles, impl="ref"))
+    assert kernel == plain
+    assert list(kernel[2]) == ["kernel.jpeg_transform"]
