@@ -101,7 +101,19 @@ raises (exit code ≠ 0) on any failed check:
    kernel time beside the host wall time, the device's busy share, and
    the prefill's ``wkv_ms`` / ``wkv_share``: the summed device time of the
    kernels ``wkv_chunk`` launches (three a layer) and its share; all 96
-   must be in the trace. ``lead_ms``: the first kernel's start in it;
+   must be in the trace. ``lead_ms``: the first kernel's start in it.
+   The engine runs its decode step as a CUDA graph (``graphs``, the
+   default on the card): every engine captures it once, on its second
+   decode tick, and replays it on every tick from then on (gated by the
+   engine's ``graph_captures`` and ``graph_replays``). One eager engine
+   run (``graphs=False``) of the same requests, in bf16 and in float32
+   compute, must give the graph runs' tokens (and in float32 the same
+   logits); ``graph`` reports both runs' ``ms_per_tick`` and
+   ``decode_tok_per_s``, and one decode step from one cache, the
+   replay's logits against the eager step's (max|Δ| at most
+   ``GRAPH_LOGIT_BOUND``, the caches written equal, no launch counted in
+   the capture) with one replay's device time (CUDA events) beside the
+   eager step's profiled one;
 10. the event-driven pipeline on the card — four 8192² slides (256²
     tiles; two PSV, two TIFF; UIDs pinned from each slide id) ingested
     into the landing bucket of a ``ConversionPipeline`` on a
@@ -149,7 +161,9 @@ raises (exit code ≠ 0) on any failed check:
     tokens/s, tokens per tick and ms per tick, a profiled 2048-token
     prefill and 4-slot decode step (kernels, device ms against wall ms,
     busy share; each one call's by difference of a 3-call and a 1-call
-    trace, since a trace late in this process misses its first kernels)
+    trace, since a trace late in this process misses its first kernels),
+    phase 9's graph-against-eager runs and step through the bus, with the
+    float KV cache and with ``+kv8``,
     with an estimate of the attention's device time and share (not read
     from the prefill's trace: one ``blocked_attention`` call at a layer's
     shapes on random q/k/v in a trace of its own, times the layers), and
@@ -190,7 +204,8 @@ raises (exit code ≠ 0) on any failed check:
     (the decode from each side's own cache is reported: the hybrid's
     conv tails are bf16 in the cache, so ~1e-7 float32 differences round
     one bf16 step apart there). Prints prefill and decode rates, peak GB
-    and a profiled 2048-token prefill and decode step;
+    and a profiled 2048-token prefill and decode step. (a) and (b) each
+    add phase 9's graph-against-eager runs and step;
 13. training on the card. (a) ``rwkv6-3b`` at full width and depth
     (3,099,609,600 bf16 parameters from seed 0, ``remat="nothing"``)
     trained by ``launch.train.run`` as ``python -m
@@ -244,14 +259,19 @@ raises (exit code ≠ 0) on any failed check:
     at most ``ROOF_SHARE_MAX``; the memory the step allocates above its
     arguments, predicted by the meta run, within ``ROOF_MEM_BOUND`` of the
     card's measured one (the totals with the arguments printed); 32
-    ``wkv_chunk`` launches a prefill and none a decode step. Then the
+    ``wkv_chunk`` launches a prefill and none a decode step; the decode
+    step also as a CUDA graph replay (the engine's step, CUDA events,
+    median of 5), its share of the same bound at most ``ROOF_SHARE_MAX``
+    (the counts stay the eager run's: the counter cannot see inside a
+    replay). Then the
     ``phi4-mini-3.8b`` ``decode_32k`` cell on the 256-GPU production mesh
     (a fake process group) in a subprocess: ok, its collectives counted.
     Prints each cell's counts, terms, time, share, model FLOP share and
     peak memory.
 
-Prints the kernel JSON line and the card line before the last line, which
-is ``{"ok": true, "device": {...}}``.
+Each phase's seconds are logged as it ends (``phase_s``). Prints the
+kernel JSON line and the card line before the last line, which is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -296,6 +316,11 @@ SERVE_PROMPTS = (2048, 1024, 512, 256, 100, 64)
 SERVE_NEW = 32
 SERVE_SLOTS = 4
 SERVE_MAX_LEN = 4096
+# the engine's decode graph (serve.steps.DecodeGraph): max|graph − eager|
+# of one decode step's logits from one cache (the replay runs the eager
+# step's own kernels), and the replays a device time is the median of
+GRAPH_LOGIT_BOUND = 0.0
+GRAPH_TIME_REPS = 5
 # max|Δ| / max|plain| of a run's prefill logits vs the plain run's (module
 # doc): in float32 a fixed bound; in bf16 this factor times the witness's
 # spread (the plain wkv summed in another order, vs the plain wkv)
@@ -315,7 +340,7 @@ def _zero_launches() -> None:
 
 def _read_launches() -> dict:
     from repro_torch.kernels import ops
-    return {name: getattr(ops, name).launches for name in KERNELS}
+    return ops.launch_counts()
 
 
 def _time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -1381,18 +1406,21 @@ def _bus_intake(eng, prompts, max_new: int, tokens: dict):
 
 
 def _serve_timed(cfg, params, prompts, max_new: int = SERVE_NEW, *,
-                 bus: bool = False) -> dict:
+                 bus: bool = False, graphs: bool | None = None) -> dict:
     """The main path: the engine as a user runs it, every request submitted
     (directly, or with ``bus`` through :func:`_bus_intake`, the launcher's
     path) and ticks run until it drains, the intake and each tick timed on
-    the host (synchronised). Returns the tokens, the ticks' times with the
-    prompt lengths each admitted, and with ``bus`` the messages acked and
+    the host (synchronised). ``graphs`` goes to the engine (its default: the
+    decode step as a CUDA graph). Returns the tokens, the ticks' times with
+    the prompt lengths each admitted, the engine's decode ticks and graph
+    captures and replays, and with ``bus`` the messages acked and
     outstanding once the responses are delivered."""
     import torch
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
+    gc.collect()  # earlier bus runs' engines (and graphs) sit in cycles
     eng = ContinuousBatchingEngine(cfg, params, batch_size=SERVE_SLOTS,
-                                   max_len=SERVE_MAX_LEN)
+                                   max_len=SERVE_MAX_LEN, graphs=graphs)
     tokens, ticks, out = {}, [], {}
     t0 = time.perf_counter()
     if bus:
@@ -1414,7 +1442,9 @@ def _serve_timed(cfg, params, prompts, max_new: int = SERVE_NEW, *,
         out = dict(acked=len(front.sub.acked),
                    outstanding=len(front.sub.outstanding))
     return dict(tokens=tokens, ticks=ticks, submit_s=submit_s,
-                wall_s=time.perf_counter() - t0, **out)
+                wall_s=time.perf_counter() - t0, steps=eng.steps,
+                graph_captures=eng.graph_captures,
+                graph_replays=eng.graph_replays, **out)
 
 
 def _prefill_s(params, cfg, prompts, impl="auto", reps: int = 3) -> dict:
@@ -1457,10 +1487,12 @@ def _decode_rates(run: dict, pre_s: dict) -> dict:
                                             if not ns))
 
 
-def _serve_recorded(cfg, params, prompts, impl) -> dict:
+def _serve_recorded(cfg, params, prompts, impl, graphs=None) -> dict:
     """One engine run that keeps each request's logits at every token it
     was given (its prefill, then each tick it was active in), through the
-    engine's ``_greedy``. ``impl`` goes to the prefill's wkv."""
+    engine's ``_greedy`` (which copies a replay's logits to the host before
+    the next replay overwrites them). ``impl`` goes to the prefill's wkv,
+    ``graphs`` to the engine."""
     from repro_torch.serve.engine import ContinuousBatchingEngine
 
     class Recording(ContinuousBatchingEngine):
@@ -1483,7 +1515,7 @@ def _serve_recorded(cfg, params, prompts, impl) -> dict:
             return super()._greedy(logits)
 
     eng = Recording(cfg, params, batch_size=SERVE_SLOTS,
-                    max_len=SERVE_MAX_LEN, impl=impl)
+                    max_len=SERVE_MAX_LEN, impl=impl, graphs=graphs)
     tokens = {}
     for req in _requests(prompts, tokens, SERVE_NEW):
         eng.submit(req)
@@ -1492,7 +1524,94 @@ def _serve_recorded(cfg, params, prompts, impl) -> dict:
         if [int(l.argmax()) for l in seq[:len(tokens[i])]] != tokens[i]:
             raise AssertionError(f"request {i}: tokens are not the argmax "
                                  "of the recorded logits")
+    _graph_counts("recorded run", dict(
+        steps=eng.steps, graph_captures=eng.graph_captures,
+        graph_replays=eng.graph_replays), graphs is not False)
     return dict(tokens=tokens, logits=eng.logits)
+
+
+def _graph_counts(tag: str, run: dict, graphs: bool) -> dict:
+    """Gate: a graph engine captured its decode step once and replayed it
+    on every decode tick from the second on; an eager one did neither.
+    Returns the counts."""
+    counts = {k: run[k] for k in ("steps", "graph_captures",
+                                  "graph_replays")}
+    want = (1, run["steps"] - 1) if graphs else (0, 0)
+    if (run["graph_captures"], run["graph_replays"]) != want:
+        raise AssertionError(f"{tag}: {counts}, expected captures and "
+                             f"replays {want}")
+    return counts
+
+
+def _graph_vs_eager(tag: str, cfg, params, prompts, run: dict, pre_s: dict,
+                    max_new: int, *, bus: bool) -> dict:
+    """The graph engine's run ``run`` (the main path, ``_serve_timed``)
+    against one eager engine run (``graphs=False``) of the same requests in
+    the same process: the tokens must be equal, each run's captures and
+    replays as :func:`_graph_counts` says. Returns both runs' tick times
+    and decode rates (:func:`_decode_rates`) side by side, and one decode
+    step graph against eager (:func:`_graph_step`)."""
+    eager = _serve_timed(cfg, params, prompts, max_new, bus=bus,
+                         graphs=False)
+    if eager["tokens"] != run["tokens"]:
+        parted = sorted(i for i in run["tokens"]
+                        if eager["tokens"].get(i) != run["tokens"][i])
+        raise AssertionError(f"{tag}: the graph engine's tokens differ "
+                             f"from the eager engine's (requests {parted})")
+    rates = {"graph": _decode_rates(run, pre_s),
+             "eager": _decode_rates(eager, pre_s)}
+    keys = ("ms_per_tick", "decode_tok_per_s", "decode_ticks")
+    return dict(
+        tokens_equal=True,
+        counts={"graph": _graph_counts(tag, run, True),
+                "eager": _graph_counts(tag + " eager", eager, False)},
+        **{k: {r: rates[r][k] for r in rates} for k in keys},
+        wall_s={"graph": run["wall_s"], "eager": eager["wall_s"]},
+        step=_graph_step(tag, cfg, params, prompts))
+
+
+def _graph_step(tag: str, cfg, params, prompts) -> dict:
+    """One decode step from one cache and one set of inputs, the graph's
+    (``serve.steps.DecodeGraph``) against the eager step's: an eager
+    engine after its first tick (the warm-up), the first SERVE_SLOTS
+    prompts in its slots, its cache cloned once for each. Gates: no kernel
+    launch counted inside the capture; the logits within GRAPH_LOGIT_BOUND
+    (max|Δ|) and the caches the two steps write equal. Returns those and
+    one replay's device time (CUDA events, median of GRAPH_TIME_REPS)."""
+    import torch
+    from repro_torch.models.params import tree_defs, tree_map
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.steps import DecodeGraph, make_decode_step
+
+    eng = ContinuousBatchingEngine(cfg, params, batch_size=SERVE_SLOTS,
+                                   max_len=SERVE_MAX_LEN, graphs=False)
+    for req in _requests(prompts[:SERVE_SLOTS], {}, 8):
+        eng.submit(req)
+    eng.tick()
+    dev, tok, pos = eng.device, eng._last_tok.copy(), eng.pos.copy()
+    c_eager = tree_map(torch.clone, eng.cache)
+    c_graph = tree_map(torch.clone, eng.cache)
+    del eng
+    step = make_decode_step(cfg)
+    want, _ = step(params, c_eager,
+                   torch.as_tensor(tok, device=dev)[:, None].long(),
+                   torch.as_tensor(pos, device=dev))
+    graph = DecodeGraph(step, params, c_graph, SERVE_SLOTS)
+    got = graph(tok, pos)
+    diff = float((got.float() - want.float()).abs().max())
+    apart = [path for (path, a), (_, b) in zip(tree_defs(c_graph),
+                                               tree_defs(c_eager))
+             if not torch.equal(a, b)]
+    if graph.captured_launches or not diff <= GRAPH_LOGIT_BOUND or apart:
+        raise AssertionError(
+            f"{tag}: the graph step against the eager step: logits "
+            f"max|Δ| {diff} (bound {GRAPH_LOGIT_BOUND}), cache leaves "
+            f"apart {apart}, {graph.captured_launches} launches captured")
+    replay_ms = _time_ms(graph.graph.replay, reps=GRAPH_TIME_REPS, warmup=1)
+    del graph, c_eager, c_graph, got, want
+    _free()
+    return dict(logit_max_abs_diff=diff, caches_equal=True,
+                captured_launches=0, replay_device_ms=replay_ms)
 
 
 def _shadowed_wkv(shadow: dict):
@@ -1662,6 +1781,25 @@ def run_serving(seed: int) -> dict:
                                 name=cfg.name + "+f32")
     run32 = _serve_recorded(cfg32, params, prompts, "auto")
     plain32 = _serve_recorded(cfg32, params, prompts, "ref")
+    # the decode graph against the eager engine: bf16 (the main path's run
+    # against an eager timed run) and float32 (F8's token gate: the graph
+    # run's tokens against an eager recorded run's, and their logits)
+    graph = {"bf16": _graph_vs_eager("phase 9", cfg, params, prompts, run,
+                                     pre_s, SERVE_NEW, bus=False)}
+    eager32 = _serve_recorded(cfg32, params, prompts, "auto", graphs=False)
+    if eager32["tokens"] != run32["tokens"]:
+        raise AssertionError("phase 9: the float32 graph engine's tokens "
+                             "differ from the eager engine's")
+    graph["f32"] = dict(
+        tokens_equal=True, logit_max_abs_diff=max(
+            float((a - b).abs().max()) for i in run32["logits"]
+            for a, b in zip(run32["logits"][i], eager32["logits"][i])),
+        step=_graph_step("phase 9 f32", cfg32, params, prompts))
+    if graph["f32"]["logit_max_abs_diff"] > GRAPH_LOGIT_BOUND:
+        raise AssertionError(f"phase 9: the float32 graph run's logits lie "
+                             f"{graph['f32']['logit_max_abs_diff']} from "
+                             "the eager run's")
+    del eager32
     rows = {"bf16_witness": _compare_runs(witness, plain, math.inf)}
     spread = max(r["prefill_logit_rel"] for r in rows["bf16_witness"])
     if not spread > 0:
@@ -1703,7 +1841,8 @@ def run_serving(seed: int) -> dict:
         f32_prefill_s=_prefill_s(params, cfg32, prompts, "auto", 1),
         shadow_checked_calls=shadow["calls"],
         shadow_max_rel_err=shadow["max_rel_err"],
-        witness_spread=spread, logit_rel_bound=bounds, compare=rows)
+        witness_spread=spread, logit_rel_bound=bounds, compare=rows,
+        graph=graph)
 
 
 # phase 10: slides through the event-driven pipeline
@@ -2135,6 +2274,15 @@ def run_dense_serving(seed: int, card: str) -> dict:
 
     pre_s = _prefill_s(params, cfg, prompts)
     rates = _decode_rates(run, pre_s)
+    # the decode graph against the eager engine through the bus, with the
+    # float KV cache and with +kv8
+    graph = {"bf16": _graph_vs_eager("phase 11", cfg, params, prompts, run,
+                                     pre_s, SERVE_NEW, bus=True)}
+    kv8 = get_config(DENSE_ARCH + "+kv8")
+    graph["kv8"] = _graph_vs_eager(
+        "phase 11 +kv8", kv8, params, prompts,
+        _serve_timed(kv8, params, prompts, bus=True),
+        _prefill_s(params, kv8, prompts), SERVE_NEW, bus=True)
 
     # one profiled 2048-token prefill and 4-slot decode step, and an
     # estimate of the attention's device time in that prefill, taken from
@@ -2174,7 +2322,7 @@ def run_dense_serving(seed: int, card: str) -> dict:
         prefill_tok_per_s={n: n / pre_s[n] for n in SERVE_PROMPTS},
         prefill_s=pre_s, **rates, profiles=profiles,
         loop_prompt=len(prompts[last]), one_row_loop_parts_at=solo_part,
-        checks=checks)
+        checks=checks, graph=graph)
 
 
 # phase 12: the moe, hybrid, vlm and audio families
@@ -2530,6 +2678,8 @@ def run_moe_serving(seed: int, card: str) -> dict:
 
     pre_s = _prefill_s(params, cfg, prompts)
     rates = _decode_rates(run, pre_s)
+    graph = _graph_vs_eager("phase 12", cfg, params, prompts, run, pre_s,
+                            SERVE_NEW, bus=True)
     tokens = torch.as_tensor(prompts[0], device=dev)[None].long()
     cache = M.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, dev)
     step = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
@@ -2555,7 +2705,8 @@ def run_moe_serving(seed: int, card: str) -> dict:
         launches=launches, peak_gb=peak_gb, wall_s=run["wall_s"],
         submit_s=run["submit_s"], responses=len(run["tokens"]),
         prefill_tok_per_s={n: n / pre_s[n] for n in SERVE_PROMPTS},
-        prefill_s=pre_s, **rates, profiles=profiles, checks=checks)
+        prefill_s=pre_s, **rates, profiles=profiles, checks=checks,
+        graph=graph)
 
 
 def _family_cpu_checks(params, cfg, n: int, seed: int) -> dict:
@@ -2676,6 +2827,8 @@ def run_family_serving(arch: str, check_layers: int, seed: int,
     checks = _family_cpu_checks(params, cfg, check_layers, seed)
     pre_s = _prefill_s(params, cfg, prompts)
     rates = _decode_rates(run, pre_s)
+    graph = _graph_vs_eager(f"phase 12 {arch}", cfg, params, prompts, run,
+                            pre_s, FAMILY_NEW, bus=False)
     # one profiled 2048-token prefill and 4-slot decode step
     tokens = torch.as_tensor(prompts[0], device=dev)[None].long()
     cond = zero_cond(cfg, dev)
@@ -2695,7 +2848,8 @@ def run_family_serving(arch: str, check_layers: int, seed: int,
     return dict(arch=arch, family=cfg.family, params=n_params, init_s=init_s,
                 launches=launches, peak_gb=peak_gb, wall_s=run["wall_s"],
                 prefill_tok_per_s={n: n / pre_s[n] for n in FAMILY_PROMPTS},
-                prefill_s=pre_s, **rates, profiles=profiles, checks=checks)
+                prefill_s=pre_s, **rates, profiles=profiles, checks=checks,
+                graph=graph)
 
 
 # phase 13: training rwkv6-3b on the card
@@ -3427,7 +3581,10 @@ def run_roofline(seed: int, card: str) -> dict:
     ROOF_SHARE_MAX; the step's own memory (above its arguments)
     predicted within ROOF_MEM_BOUND of the measured one;
     ROOF_WKV_PER_PREFILL ``wkv_chunk`` launches a
-    prefill and none a decode step. Then ROOF_PRODUCTION_CELL through
+    prefill and none a decode step. The decode step is also timed as the
+    engine runs it, a CUDA graph replay (``graph_step_ms``, its share of
+    the same bound, at most ROOF_SHARE_MAX; no launch counted inside the
+    capture). Then ROOF_PRODUCTION_CELL through
     ``python -m repro_torch.launch.dryrun --one`` in a subprocess:
     ``ok`` with its collectives counted."""
     import torch
@@ -3484,6 +3641,17 @@ def run_roofline(seed: int, card: str) -> dict:
             raise AssertionError(f"phase 14 {name}: launches {launches} over "
                                  f"{run['step_calls']} steps; expected "
                                  f"{want} wkv_chunk a step")
+        graph = {}
+        if kind == "decode":
+            graph_s = run["graph_step_ms"] / 1e3
+            graph = dict(graph_step_ms=run["graph_step_ms"],
+                         graph_share=run["bound_s"] / graph_s,
+                         graph_captured_launches=run[
+                             "graph_captured_launches"])
+            if not graph["graph_share"] <= ROOF_SHARE_MAX or \
+                    graph["graph_captured_launches"]:
+                raise AssertionError(
+                    f"phase 14 {name}: the graph replay: {graph}")
         tokens = batch * (seq if kind == "prefill" else 1)
         cells[name] = dict(
             shape=[batch, seq], kind=kind, flops=run["flops_per_device"],
@@ -3499,7 +3667,8 @@ def run_roofline(seed: int, card: str) -> dict:
             peak_predicted_bytes=meta["hbm_per_device"],
             peak_measured_bytes=run["measured_peak_bytes"],
             wkv_launches_per_step=per_step,
-            lower_s_card=run["lower_s"], lower_s_meta=meta["lower_s"])
+            lower_s_card=run["lower_s"], lower_s_meta=meta["lower_s"],
+            **graph)
         _log(f"phase 14 {name}: " + json.dumps(cells[name]))
     del params
     _free()
@@ -3574,6 +3743,16 @@ def main() -> int:
     scan_s = time.perf_counter() - t0
     _log(f"scan: {args.size}² PSV slide, {len(slide)} bytes, {scan_s:.2f} s")
 
+    # each phase's seconds, logged as it ends and listed before the results
+    phase_s, lap = {}, [t_start]
+
+    def done(n: str) -> None:
+        phase_s[n] = time.perf_counter() - lap[0]
+        lap[0] = time.perf_counter()
+        _log(f"phase {n}: {phase_s[n]:.1f} s")
+
+    done("1-2 + scan")
+
     # 3. kernels vs plain versions
     kernels = check_kernels(args.size, slide, args.seed)
     for k in kernels.values():
@@ -3584,59 +3763,68 @@ def main() -> int:
         _log(f"per-tile {name}: " + json.dumps(
             {k: v for k, v in kernels[name].items() if "ms" in k}))
 
+    done("3")
+
     # 4. equivalence at 4096², the per-tile path with its launch counts
     per_tile = check_equivalence(args.seed)
+    done("4")
 
     # 5. the main path
     tar, main_path = run_main_path(args.size, slide, args.seed)
     main_path["stage_s"] = {"scan": scan_s, **main_path["stage_s"]}
     _log("main path: " + json.dumps(main_path))
+    done("5")
 
     # 6. the read side of the main path's study
     read_side = run_read_side(args.size, slide, tar)
     _log("read side: " + json.dumps(read_side))
+    done("6")
 
     # 7. entropy_decode on level 0's frames
     kernels["entropy_decode"] = check_entropy_decode(tar)
     _log("kernel entropy_decode: " + json.dumps(kernels["entropy_decode"]))
+    done("7")
 
     # 8. wkv_chunk at the serving path's prefill shapes
     kernels["wkv_chunk"] = check_wkv_chunk(args.seed)
     _log("kernel wkv_chunk: " + json.dumps(kernels["wkv_chunk"]))
+    done("8")
 
     # 9. serving rwkv6-3b at full width
     serving = run_serving(args.seed)
     _log("serving: " + json.dumps(serving))
+    done("9")
 
     # 10. the event-driven pipeline on the card
     spine = run_spine(args.seed, card)
     _log("spine: " + json.dumps(spine))
+    done("10")
 
     # 11. the dense family served through the bus
     dense = run_dense_serving(args.seed, card)
     _log("dense serving: " + json.dumps(dense))
     _free()
+    done("11")
 
     # 12. the moe, hybrid, vlm and audio families
-    t12 = time.perf_counter()
     moe = run_moe_serving(args.seed, card)
     _log("moe serving: " + json.dumps(moe))
     for arch, depth in FAMILY_ARCHS.items():
         fam = run_family_serving(arch, depth, args.seed, card)
         _log(f"{fam['family']} serving: " + json.dumps(fam))
-    _log(f"phase 12: {time.perf_counter() - t12:.1f} s")
     _free()
+    done("12")
 
     # 13. training rwkv6-3b on the card
     training = run_training(args.seed, card)
     _log("training: " + json.dumps(training))
-    _log(f"phase 13: {training['phase_s']:.1f} s")
     _free()
+    done("13")
 
     # 14. the planning layer: counts and the roofline against the card
     roofline = run_roofline(args.seed, card)
     _log("roofline: " + json.dumps(roofline))
-    _log(f"phase 14: {roofline['phase_s']:.1f} s")
+    done("14")
 
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,
@@ -3653,6 +3841,7 @@ def main() -> int:
         train_launches=training["main"]["launches_per_step"],
         train_timed=training["wkv"]["timed"])
 
+    _log("phase_s: " + json.dumps(phase_s))
     _log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

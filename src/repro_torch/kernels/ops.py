@@ -38,7 +38,7 @@ from repro_torch.roofline import work
 __all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
            "dct8x8_quant", "idct8x8_dequant", "entropy_decode", "ENTROPY_THREADS",
            "wkv_chunk", "wkv_scratch_floats", "wkv_scratch_views",
-           "WkvChunk"]
+           "WkvChunk", "launch_counts"]
 
 
 def _launches_kernel(x: torch.Tensor, name: str, ndim: int, impl: str,
@@ -554,3 +554,15 @@ class WkvChunk(torch.autograd.Function):
             out, final = ref.wkv_chunked_ref(*inputs)
             return torch.autograd.grad((out, final), inputs,
                                        (g_out, g_state))
+
+
+def launch_counts() -> dict[str, int]:
+    """Every counted wrapper's ``launches``, by name: what a region
+    launched is the difference of two readings."""
+    return {"jpeg_transform": jpeg_transform.launches,
+            "downsample2x2": downsample2x2.launches,
+            "jpeg_inverse": jpeg_inverse.launches,
+            "rgb2ycbcr": rgb2ycbcr.launches,
+            "dct8x8_quant": dct8x8_quant.launches,
+            "entropy_decode": entropy_decode.launches,
+            "wkv_chunk": wkv_chunk.launches}

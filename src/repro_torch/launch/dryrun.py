@@ -101,9 +101,10 @@ def _analytic_flops(cfg, shape, n_params: int, n_active: int) -> dict:
     return {"model_flops": model, "attn_flops_analytic": attn}
 
 
-def _step(cfg, shape, n_params: int, model_axis: int):
+def _step(cfg, shape, n_params: int, model_axis: int, microbatches: int):
     """The cell's step function and its argument groups: (ParamDef tree,
-    policy) per argument, and the weight policy."""
+    policy) per argument, and the weight policy. A train step takes
+    ``microbatches``."""
     from repro_torch.models import model as M
     from repro_torch.serve import steps as sv
     from repro_torch.train import (TrainConfig, batch_defs, make_train_step,
@@ -111,7 +112,7 @@ def _step(cfg, shape, n_params: int, model_axis: int):
 
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
-        tc = TrainConfig(microbatches=TRAIN_MICROBATCHES.get(cfg.name, 1))
+        tc = TrainConfig(microbatches=microbatches)
         return (make_train_step(cfg, tc),
                 [(train_state_defs(cfg, tc), "train"),
                  (batch_defs(cfg, B, S), "train")], "train")
@@ -201,15 +202,19 @@ def _tree_bytes(tree) -> int:
 
 def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
              params=None, seed: int = 0, time_reps: int = 0,
-             out_dir: Path | None = None, mesh_shape=None) -> dict:
+             out_dir: Path | None = None, mesh_shape=None,
+             microbatches: int | None = None) -> dict:
     """Count one cell (module doc). ``arch`` is an arch id or a
     ``ModelConfig``, ``shape`` a shape name or a ``ShapeConfig``;
     ``mesh_kind`` is ``single`` or ``multi`` (meta tensors only) or
     ``local`` (this process's device); ``mesh_shape`` (a shape and its axis
-    names) puts another fake mesh in place of the production one. With
+    names) puts another fake mesh in place of the production one;
+    ``microbatches`` sets a train cell's count (default: the arch's
+    ``TRAIN_MICROBATCHES``, else 1). With
     ``out_dir`` the record and the op table are written there. For a local cell on the card,
     ``time_reps`` > 0 also times the step (CUDA events, median, after a
-    warm-up call; ``step_calls`` counts every call) and the record holds
+    warm-up call; ``step_calls`` counts every call), a decode step also as
+    a CUDA graph replay (:func:`_graph_time`), and the record holds
     the step's measured peak memory: what the counted run allocated above
     its arguments (``measured_temp_bytes``, to hold against the meta
     run's ``temp_bytes``) and that plus the arguments
@@ -251,7 +256,12 @@ def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
     sizes = shd.axis_sizes(mesh)
     n_params = M.param_count(cfg)
     n_active = M.active_param_count(cfg)
-    fn, groups, policy = _step(cfg, shape, n_params, sizes.get("model", 1))
+    if shape.kind == "train":
+        if microbatches is None:
+            microbatches = TRAIN_MICROBATCHES.get(cfg.name, 1)
+        rec["microbatches"] = microbatches
+    fn, groups, policy = _step(cfg, shape, n_params, sizes.get("model", 1),
+                               microbatches)
     rec["weight_policy"] = policy
 
     if meta:
@@ -297,6 +307,8 @@ def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
     if cuda and time_reps:
         rec["step_ms"] = _time_ms(lambda: fn(*args), time_reps)
         rec["step_calls"] += 1 + time_reps
+        if shape.kind == "decode":
+            rec.update(_graph_time(fn, args, shape.global_batch, time_reps))
 
     res = counter.result()
     analytic = _analytic_flops(cfg, shape, n_params, n_active)
@@ -318,6 +330,22 @@ def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
     _save(rec, res, out_dir)
     rec["ops"] = res["ops"]
     return rec
+
+
+def _graph_time(fn, args, batch: int, reps: int) -> dict:
+    """The decode step as the engine runs it on the card: captured once as
+    a CUDA graph over the cell's (warm) cache (``serve.steps.DecodeGraph``)
+    and replayed; ``graph_step_ms`` is one replay's time, as
+    :func:`_time_ms` takes it, and ``graph_captured_launches`` the kernel
+    launches counted inside the capture. The counter cannot see inside a
+    replay: the eager run's counts stand for its work."""
+    from repro_torch.serve.steps import DecodeGraph
+
+    params, cache, token, pos = args
+    graph = DecodeGraph(fn, params, cache, batch)
+    graph(token.cpu().numpy(), pos.cpu().numpy())
+    return dict(graph_step_ms=_time_ms(graph.graph.replay, reps),
+                graph_captured_launches=graph.captured_launches)
 
 
 def _time_ms(fn, reps: int) -> float:

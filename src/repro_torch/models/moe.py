@@ -55,6 +55,21 @@ def moe_apply(p, cfg, x):
         return _moe_apply(p, cfg, x)
 
 
+def _dispatch(x, slot, E: int, C: int, K: int):
+    """Each (E, C) capacity slot's token row of ``x`` (B, S, D), from the
+    assignments' ``slot`` (B, S·K): (B, E, C, D), a zero row where a slot
+    is empty."""
+    B, S, D = x.shape
+    tok = (torch.arange(S * K, device=x.device) // K).expand(B, S * K)
+    # S = a zero row; only the overflow slot takes several writes, and it
+    # is cut off below, so every kept slot has one writer
+    src = torch.full((B, E * C + 1), S, dtype=torch.long, device=x.device)
+    src.scatter_(1, slot, tok)
+    rows = torch.arange(B, device=x.device)[:, None]
+    xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
+    return xpad[rows, src[:, :E * C]].reshape(B, E, C, D)
+
+
 def _moe_apply(p, cfg, x):
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
@@ -79,27 +94,25 @@ def _moe_apply(p, cfg, x):
     keep = pos < C  # pos: the assignment's place within its expert
     slot = torch.where(keep, fe * C + pos, E * C)  # E*C = overflow slot
 
-    tok = (torch.arange(S * K, device=dev) // K).expand(B, S * K)
-    # S = a zero row; only the overflow slot takes several writes, and it
-    # is cut off below, so every kept slot has one writer
-    src = torch.full((B, E * C + 1), S, dtype=torch.long, device=dev)
-    src.scatter_(1, slot, tok)
-
-    rows = torch.arange(B, device=dev)[:, None]
-    xpad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
-    xe = xpad[rows, src[:, :E * C]].reshape(B, E, C, D)
+    # the dispatch is local to each batch row: on the local shards under a
+    # mesh (DTensor has no sharded in-place scatter), else a plain call
+    xe = shd.local_call(lambda xs, ss: _dispatch(xs, ss, E, C, K), (x, slot),
+                        (("batch", "", "embed"), ("batch", "")),
+                        (("batch", "", "", "embed"),))
     xe = shd.constrain(xe, "batch", "", "", "embed")
 
     # ---- expert FFN (batched over experts) -------------------------------
-    g = torch.einsum("becd,edf->becf", xe, p["wg"].to(dt))
-    u = torch.einsum("becd,edf->becf", xe, p["wu"].to(dt))
+    # (shd.dense: a no-op with no mesh; under one, DTensor's layouts)
+    g = shd.dense(torch.einsum("becd,edf->becf", xe, p["wg"].to(dt)))
+    u = shd.dense(torch.einsum("becd,edf->becf", xe, p["wu"].to(dt)))
     h = F.silu(g) * u
-    h = shd.constrain(h, "batch", "", "", "mlp")
+    h = shd.dense(shd.constrain(h, "batch", "", "", "mlp"))
     y = torch.einsum("becf,efd->becd", h, p["wd"].to(dt))
 
     # ---- combine ----------------------------------------------------------
     yflat = torch.cat([y.reshape(B, E * C, D), y.new_zeros((B, 1, D))],
                       dim=1)
+    rows = torch.arange(B, device=dev)[:, None]
     gathered = yflat[rows, slot]  # (B, S*K, D)
     gathered = gathered * (fw * keep.to(dt))[..., None]
     out = gathered.reshape(B, S, K, D).sum(dim=2)

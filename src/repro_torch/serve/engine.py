@@ -13,9 +13,22 @@ The paper's pattern applied to LM serving: requests land on a pub/sub topic
 
 The engine is synchronous and deterministic (tests drive ``tick()``
 directly); ``PubSubFrontend`` adapts it to the port's event bus
-(:mod:`repro_torch.core.pubsub`). Decode runs eagerly, one ``decode_step``
-call per tick. The cache lives on the parameters' device; the slot splice
-writes into it in place, and so does the decode step.
+(:mod:`repro_torch.core.pubsub`). The cache lives on the parameters'
+device; the slot splice writes into it in place, and so does the decode
+step (``serve.steps.make_decode_step``, the step the dry run counts).
+
+Where the reference jits its decode step, the engine on a CUDA device
+runs it as one CUDA graph (``graphs``; ``serve.steps.DecodeGraph``): the
+first decode tick runs the step eagerly (the warm-up), the second
+captures it over the live cache and replays it once to do its work, and
+every later tick replays it, after checking that every leaf of the cache
+and the parameters is the tensor the graph captured (a changed leaf
+raises ``RuntimeError``; nothing falls back to the eager step). The
+logits a replay returns live in the graph's static buffer and are
+overwritten by the next replay: the argmax and its read-back stay
+outside the graph (:meth:`_greedy`), as the reference takes its argmax
+outside ``jit``. ``graphs=False`` is the eager engine, one step call a
+tick. The prefill runs eagerly in both, as the reference's does.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ import torch
 from repro_torch.core.pubsub import Subscription
 from repro_torch.models import model as M
 from repro_torch.models.params import tree_map
+from repro_torch.serve.steps import DecodeGraph, make_decode_step
 
 __all__ = ["ContinuousBatchingEngine", "PubSubFrontend", "Request",
            "splice_slot", "zero_cond"]
@@ -76,11 +90,17 @@ class ContinuousBatchingEngine:
     :meth:`_greedy`); ``greedy`` is accepted and unread, as in the
     reference. ``impl`` goes to the ssm prefill's wkv
     (:func:`repro_torch.models.model.prefill`). The vlm and audio families
-    are conditioned on zeros (the reference's stub frontend)."""
+    are conditioned on zeros (the reference's stub frontend).
+
+    ``graphs`` (module doc): ``None`` runs the decode step as a CUDA graph
+    when the cache lives on a CUDA device and eagerly otherwise; ``True``
+    on a CPU cache raises ``ValueError``; ``False`` is the eager engine.
+    ``graph_captures`` and ``graph_replays`` count the graph's captures
+    (at most 1) and replays (one a decode tick from the second on)."""
 
     def __init__(self, cfg, params, *, batch_size: int = 4,
                  max_len: int = 256, greedy: bool = True,
-                 impl: str = "auto"):
+                 impl: str = "auto", graphs: bool | None = None):
         self.cfg = cfg
         self.params = params
         self.impl = impl
@@ -88,6 +108,14 @@ class ContinuousBatchingEngine:
         self.B = batch_size
         self.max_len = max_len
         self.cache = M.init_cache(cfg, batch_size, max_len, self.device)
+        on_card = self.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError(f"graphs=True needs a CUDA cache; this one "
+                             f"lives on {self.device}")
+        self.graphs = on_card if graphs is None else graphs
+        self._step = make_decode_step(cfg)
+        self._graph: DecodeGraph | None = None
+        self.graph_captures = 0
         self.pos = np.zeros(batch_size, np.int32)
         self.active: list[Request | None] = [None] * batch_size
         self.budget = np.zeros(batch_size, np.int32)
@@ -133,11 +161,7 @@ class ContinuousBatchingEngine:
             self._fill_slots()
             if not any(r is not None for r in self.active):
                 return 0
-        toks = torch.as_tensor(self._last_tok, device=self.device)[:, None]
-        pos = torch.as_tensor(self.pos, device=self.device)
-        logits, self.cache = M.decode_step(self.params, self.cfg, self.cache,
-                                           toks.long(), pos)
-        nxt = self._greedy(logits)
+        nxt = self._greedy(self._decode())
         self.steps += 1
         for b, req in enumerate(self.active):
             if req is None:
@@ -154,6 +178,26 @@ class ContinuousBatchingEngine:
                 self._finish(b, req)
         self._fill_slots()
         return sum(r is not None for r in self.active)
+
+    def _decode(self) -> torch.Tensor:
+        """One decode step over every slot: eager on the first tick (and
+        always without graphs), captured on the second, replayed from then
+        on (module doc). Returns the (B, V) logits."""
+        if self._graph is None and self.graphs and self.steps >= 1:
+            self._graph = DecodeGraph(self._step, self.params, self.cache,
+                                      self.B)
+            self.graph_captures += 1
+        if self._graph is not None:
+            return self._graph(self._last_tok, self.pos)
+        toks = torch.as_tensor(self._last_tok, device=self.device)[:, None]
+        pos = torch.as_tensor(self.pos, device=self.device)
+        logits, self.cache = self._step(self.params, self.cache, toks.long(),
+                                        pos)
+        return logits
+
+    @property
+    def graph_replays(self) -> int:
+        return 0 if self._graph is None else self._graph.replays
 
     def _finish(self, b: int, req: Request):
         tokens = self.generated.pop(req.req_id)

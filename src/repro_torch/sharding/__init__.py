@@ -43,6 +43,7 @@ __all__ = [
     "batch_axes",
     "axis_sizes",
     "local_call",
+    "dense",
     "index_write",
     "placed",
 ]
@@ -231,6 +232,22 @@ def local_call(fn, args, in_axes, out_axes):
         for axes in out_axes)
     return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
                      device_mesh=dmesh)(*ins)
+
+
+def dense(x):
+    """Under a mesh, a DTensor ``x`` laid out contiguously, with the
+    gradient that flows back into it made contiguous too; otherwise ``x``
+    itself. DTensor carries a global stride that its local shards need
+    not share (a shard from a reduce-scatter is contiguous where the
+    global tensor has an einsum's permuted layout), and an einsum then
+    takes a view, forward or backward, that the local shard cannot give
+    (the experts' ``g``, ``u`` and ``h`` in ``models/moe.py``)."""
+    if current_mesh() is None or not hasattr(x, "to_local"):
+        return x
+    x = x.contiguous()
+    if x.requires_grad:
+        x.register_hook(lambda g: g.contiguous())
+    return x
 
 
 def index_write(dst, index, value) -> None:

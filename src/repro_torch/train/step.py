@@ -102,6 +102,15 @@ def _unflatten(paths, leaves) -> dict:
     return out
 
 
+def _accumulate(a, b) -> None:
+    """``a += b`` in float32, in place; a DTensor gradient that comes back
+    in other placements than its buffer is first redistributed to them."""
+    b = b.float()
+    if hasattr(a, "to_local") and tuple(b.placements) != tuple(a.placements):
+        b = b.redistribute(a.device_mesh, a.placements)
+    a.add_(b)
+
+
 def make_train_step(cfg, tc: TrainConfig):
     """Returns ``step(state, batch) -> (state, metrics)``: ``state`` as
     :func:`init_train_state` builds it (updated in place and returned in a
@@ -118,14 +127,15 @@ def make_train_step(cfg, tc: TrainConfig):
                              "microbatches")
         n = B // k
         loss_acc = 0.0
-        acc = tree_map(lambda p: torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device), params)
+        # float32 buffers on each parameter's device (and placements)
+        acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params)
         for j in range(k):
             mb = {key: shd.constrain(x[j * n:(j + 1) * n], "batch",
                                      *("",) * (x.ndim - 1))
                   for key, x in batch.items()}
             loss, g = loss_and_grads(params, cfg, mb)
-            tree_map(lambda a, b: a.add_(b.float()), acc, g)
+            tree_map(_accumulate, acc, g)
             loss_acc = loss_acc + loss
             del g
         inv = 1.0 / k

@@ -90,6 +90,76 @@ def test_cells_on_a_fake_mesh_in_subprocess(tmp_path):
     assert cells["rwkv6-3b-smoke"]["weight_policy"] == "train"
 
 
+# the cells that raised AssertionError on DTensors (PERF.md §6): the
+# MoE's capacity dispatch (an in-place scatter, now on the local shards)
+# and the gradient accumulation of a microbatched train step (a gradient
+# in other placements than its float32 buffer); the mixtral train cell
+# also takes its experts' backward through ``sharding.dense``
+MOE_CELLS = {
+    "mixtral-decode": ("mixtral-8x7b-smoke", ("d", 64, 4, "decode"), None),
+    "mixtral-prefill": ("mixtral-8x7b-smoke", ("p", 128, 4, "prefill"), None),
+    "zamba2-train": ("zamba2-1.2b-smoke", ("t", 64, 4, "train"), 2),
+    "mixtral-train": ("mixtral-8x7b-smoke", ("t", 64, 4, "train"), 2),
+}
+
+
+@pytest.fixture(scope="module")
+def moe_cells(tmp_path_factory):
+    """Every case of MOE_CELLS on a fake (2, 2) mesh, in one subprocess
+    (the fake process group is per process): each record and its
+    seconds."""
+    out = tmp_path_factory.mktemp("moe_cells")
+    prog = textwrap.dedent("""
+        import json, sys, time
+        sys.path.insert(0, %r)
+        from repro_torch.configs import ShapeConfig, get_config
+        from repro_torch.launch import dryrun
+        out = {}
+        for case, (arch, shape, mb) in json.loads(%r).items():
+            t0 = time.perf_counter()
+            rec = dryrun.run_cell(get_config(arch), ShapeConfig(*shape),
+                                  "single", mesh_shape=((2, 2),
+                                  ("data", "model")), out_dir=%r,
+                                  microbatches=mb)
+            rec.pop("ops", None)
+            rec["seconds"] = time.perf_counter() - t0
+            out[case] = rec
+        print("CELLS" + json.dumps(out, default=float))
+    """) % (SRC, json.dumps(MOE_CELLS), str(out))
+    r = subprocess.run([sys.executable, "-c", prog], capture_output=True,
+                       text=True, timeout=900)
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("CELLS")]
+    assert line, r.stderr[-3000:]
+    return json.loads(line[0][5:])
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CELLS))
+def test_moe_and_accumulation_cells_on_a_fake_mesh(moe_cells, case):
+    """Each cell is ok on the fake (2, 2) mesh with its collectives
+    counted (the train cells with 2 microbatches, so the accumulation's
+    add runs)."""
+    rec = moe_cells[case]
+    assert rec["ok"], (case, rec.get("error"), rec.get("traceback"))
+    assert rec["chips"] == 4 and rec["collectives"]["total"] > 0, case
+    assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
+    assert rec["kind"] == MOE_CELLS[case][1][3]
+    assert rec.get("microbatches") == MOE_CELLS[case][2]
+
+
+def test_train_cell_records_the_arch_microbatches():
+    """A train cell takes the TRAIN_MICROBATCHES of its config's name
+    (here a reduced rwkv6 under zamba2's name) unless ``microbatches`` is
+    given."""
+    shape = ShapeConfig("t", 64, 4, "train")
+    cfg = dataclasses.replace(get_config("rwkv6-3b-smoke"),
+                              name="zamba2-1.2b")
+    rec = dryrun.run_cell(cfg, shape, "local", device="meta")
+    assert rec["ok"] and rec["microbatches"] == \
+        dryrun.TRAIN_MICROBATCHES["zamba2-1.2b"]
+    rec = dryrun.run_cell(cfg, shape, "local", device="meta", microbatches=4)
+    assert rec["ok"] and rec["microbatches"] == 4
+
+
 def _tokens(cfg, B, S, seed=0):
     g = torch.Generator().manual_seed(seed)
     return torch.randint(0, cfg.vocab_size, (B, S), generator=g,

@@ -1,11 +1,13 @@
 """The port on a CUDA card: each kernel vs its plain version, the
 converter, the decoders and the RWKV6 and dense serving paths on the
-card vs their CPU plain paths, and the wkv kernel under autograd. Every
+card vs their CPU plain paths, the wkv kernel under autograd, and the
+engine's decode step as a CUDA graph against the eager step. Every
 test here is marked ``gpu`` and skips without a card; the file imports
 no JAX, so it runs on a GPU machine that has none:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -15,8 +17,9 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.models import model as M
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import tree_defs, tree_map
 from repro_torch.serve import ContinuousBatchingEngine, Request
+from repro_torch.serve import steps as sv
 from repro_torch.wsi import (ConvertOptions, SyntheticScanner,
                              convert_wsi_to_dicom, open_slide)
 from repro_torch.wsi import jpeg as P
@@ -673,3 +676,121 @@ def test_counter_kernel_equals_plain_transform(cuda_device):
     plain = _counted(lambda: ops.jpeg_transform(tiles, impl="ref"))
     assert kernel == plain
     assert list(kernel[2]) == ["kernel.jpeg_transform"]
+
+
+# the engine's decode graph (serve.steps.DecodeGraph) on reduced configs of
+# the six families: case -> (arch, compute dtype; None keeps the smoke's
+# float32, whose ssm and hybrid state leaves turn float32 on tick 1)
+GRAPH_CASES = {
+    "rwkv6": ("rwkv6-3b-smoke", None),
+    "rwkv6-bf16": ("rwkv6-3b-smoke", torch.bfloat16),
+    "phi4": ("phi4-mini-3.8b-smoke", None),
+    "phi4-kv8": ("phi4-mini-3.8b-smoke+kv8", None),
+    "mixtral": ("mixtral-8x7b-smoke", None),
+    "zamba2": ("zamba2-1.2b-smoke", None),
+    "zamba2-bf16": ("zamba2-1.2b-smoke", torch.bfloat16),
+    "vlm": ("llama-3.2-vision-11b-smoke", None),
+    "musicgen": ("musicgen-large-smoke", None),
+}
+# max|graph - eager| of one decode step's logits from one cache (the
+# graph replays the eager step's own kernels)
+GRAPH_LOGIT_BOUND = 0.0
+
+
+def _graph_case(case, device):
+    arch, dt = GRAPH_CASES[case]
+    cfg = get_config(arch)
+    if dt is not None:
+        cfg = dataclasses.replace(cfg, dtype=dt)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 40, 3, 17, 9)]
+    return cfg, params, prompts
+
+
+def _serve(cfg, params, prompts, graphs):
+    eng = ContinuousBatchingEngine(cfg, params, batch_size=2, max_len=64,
+                                   graphs=graphs)
+    got = {}
+    for i, (p, n) in enumerate(zip(prompts, (4, 7, 3, 6, 5))):
+        eng.submit(Request(prompt=p, max_new_tokens=n,
+                           done=lambda t, i=i: got.update({i: t})))
+    eng.run_until_drained()
+    return eng, got
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_engine_tokens_equal_eager_engine(cuda_device, case):
+    """One capture on the second tick, a replay on every tick from it on,
+    no counted kernel launch inside the capture, and the eager engine's
+    tokens."""
+    cfg, params, prompts = _graph_case(case, cuda_device)
+    eager, want = _serve(cfg, params, prompts, False)
+    eng, got = _serve(cfg, params, prompts, None)
+    assert eng.graphs and not eager.graphs
+    assert got == want and eng.steps == eager.steps > 2
+    assert (eng.graph_captures, eng.graph_replays) == (1, eng.steps - 1)
+    assert (eager.graph_captures, eager.graph_replays) == (0, 0)
+    assert eng._graph.captured_launches == 0
+
+
+def _warm_engine(case, device):
+    """An eager engine after its first tick (the warm-up: a float32 model's
+    state leaves swapped), with requests in both slots."""
+    cfg, params, prompts = _graph_case(case, device)
+    eng = ContinuousBatchingEngine(cfg, params, batch_size=2, max_len=64,
+                                   graphs=False)
+    for p in prompts[:2]:
+        eng.submit(Request(prompt=p, max_new_tokens=8))
+    eng.tick()
+    return eng
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graph_step_logits_equal_eager_step(cuda_device, case):
+    """From one cache and one set of inputs, the replayed step's logits and
+    the cache it writes equal the eager step's (GRAPH_LOGIT_BOUND)."""
+    eng = _warm_engine(case, cuda_device)
+    step = sv.make_decode_step(eng.cfg)
+    c_graph = tree_map(torch.clone, eng.cache)
+    c_eager = tree_map(torch.clone, eng.cache)
+    tok, pos = eng._last_tok.copy(), eng.pos.copy()
+    want, _ = step(eng.params, c_eager,
+                   torch.as_tensor(tok, device=cuda_device)[:, None].long(),
+                   torch.as_tensor(pos, device=cuda_device))
+    graph = sv.DecodeGraph(step, eng.params, c_graph, 2)
+    assert graph.captured_launches == 0
+    got = graph(tok, pos)
+    assert (got - want).abs().max().item() <= GRAPH_LOGIT_BOUND
+    for (path, a), (_, b) in zip(tree_defs(c_graph),
+                                 tree_defs(c_eager)):
+        assert torch.equal(a, b), path
+    assert graph.replays == 1
+
+
+def test_graph_refuses_a_swapped_leaf_and_a_failed_capture(cuda_device):
+    eng = _warm_engine("phi4", cuda_device)
+    step = sv.make_decode_step(eng.cfg)
+    graph = sv.DecodeGraph(step, eng.params, eng.cache, 2)
+    graph(eng._last_tok, eng.pos)
+    kept = eng.cache["kv_pos"]
+    eng.cache["kv_pos"] = kept.clone()
+    with pytest.raises(RuntimeError, match="leaf cache/kv_pos changed"):
+        graph(eng._last_tok, eng.pos)
+    assert graph.replays == 1
+    eng.cache["kv_pos"] = kept
+    graph(eng._last_tok, eng.pos)
+    assert graph.replays == 2
+
+    def syncing(params, cache, token, pos):
+        logits, cache = step(params, cache, token, pos)
+        if logits.sum().item() > 0:  # a host sync: capture must fail
+            pass
+        return logits, cache
+
+    with pytest.raises(RuntimeError):
+        sv.DecodeGraph(syncing, eng.params, tree_map(torch.clone, eng.cache),
+                       2)
+    torch.cuda.synchronize()
