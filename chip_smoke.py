@@ -11,7 +11,9 @@ raises (exit code ≠ 0) on any failed check:
    the plain versions;
 2. build — every kernel in ``src/repro_torch/kernels/csrc`` with nvcc, all
    sources in parallel;
-3. kernels vs plain versions at main-path shapes — ``downsample2x2`` on a
+3. kernels vs plain versions at main-path shapes, under a mesh of the one
+   card (as phases 5, 6 and 10's conversions; phase 15 splits) —
+   ``downsample2x2`` on a
    (3, size, size) level (bit-exact), ``jpeg_transform`` on the (N, 3, 256,
    256) tile batch of that level: slide tiles (exact) and uniform noise
    (every mismatch ±1 at a rounding tie, at most 1e-6 of the coefficients);
@@ -37,13 +39,15 @@ raises (exit code ≠ 0) on any failed check:
    byte; every level decoded on the card by ``decode_tiles_batch`` equals
    ``decode_tile`` per frame and the CPU plain path, pixel for pixel;
 5. the main path — a size² PSV slide (256² tiles) converted on ``cuda`` by
-   the pipelined engine with the launch counts zeroed just before: one
+   the pipelined engine, its mesh named as the one card (so the gates hold
+   on a machine of several), with the launch counts zeroed just before: one
    ``jpeg_transform`` launch per level, one ``downsample2x2`` per level
    step, one upload; every level's Part-10 frame count equals its tile
    count; per-stage wall times and MPix/s;
 6. the read side — every level of that study read back as the export
    service does (``Part10Index.read_frame`` → ``decode_frames`` on
-   ``cuda`` with the launch counts zeroed just before → ``write_tiff`` →
+   ``cuda`` under a mesh of the one card, with the launch counts zeroed
+   just before → ``write_tiff`` →
    ``open_slide``): one ``jpeg_inverse`` and one ``entropy_decode`` launch
    per level, the one-frame level included; each level equal,
    pixel for pixel, to the codec's round trip (``jpeg_inverse`` ∘
@@ -120,7 +124,8 @@ raises (exit code ≠ 0) on any failed check:
     ``RealScheduler`` (8 workers), with the port's lockdep and racedep
     armed: landing bucket → ``OBJECT_FINALIZE`` → topic → push
     subscription → ``ConverterFleet`` → ``convert_wsi_to_dicom`` on
-    ``cuda`` in worker threads → study tar → ingest subscription → the
+    ``cuda`` in worker threads (``ConvertOptions(mesh=)`` the one card) →
+    study tar → ingest subscription → the
     2-shard DICOM store → validation and ML-inference subscribers (frames
     decoded on the card). Run A is serial (one instance, concurrency 1);
     run B the same with two instances of concurrency 2 (up to four
@@ -267,7 +272,27 @@ raises (exit code ≠ 0) on any failed check:
     ``phi4-mini-3.8b`` ``decode_32k`` cell on the 256-GPU production mesh
     (a fake process group) in a subprocess: ok, its collectives counted.
     Prints each cell's counts, terms, time, share, model FLOP share and
-    peak memory.
+    peak memory;
+15. the data mesh — the split mesh is every visible card, or on a machine
+    of one card that card named twice (its two shards run one after the
+    other on it: the split, the shard views at an offset, the per-shard
+    launches and the gather all run). (a) Phase 5's level-0 tile batch
+    (4096 × (3, 256, 256) at 16384²) through ``jpeg_transform`` under the
+    split mesh, and its coefficients through ``jpeg_inverse``: each equal
+    to the one-entry mesh's call element for element, with the launch
+    counts zeroed just before, one launch a shard and no other kernel;
+    ``ms`` and ``whole_ms`` (CUDA events, median of 10), and each call's
+    device copies read from a profiler trace (``copies``,
+    ``whole_copies``: memcpy events and their bytes). (b) An 8192²
+    SyntheticScanner slide converted (``ConvertOptions(mesh=)``), stored
+    in a
+    ``DicomStoreService`` and exported (``ExportService(mesh=)``) under
+    the split mesh and under the one-entry mesh: the study tars' and the
+    TIFFs' SHA-256 equal; ``jpeg_transform`` and ``jpeg_inverse`` launched
+    once a shard at each level the mesh divides and once at the others,
+    ``downsample2x2`` once a level step and ``entropy_decode`` once a
+    level, unsplit. Prints both circles' digests, counts and times.
+    NCCL training across cards needs two cards or more and is not run.
 
 Each phase's seconds are logged as it ends (``phase_s``). Prints the
 kernel JSON line and the card line before the last line, which is
@@ -967,7 +992,9 @@ def run_main_path(size: int, slide: bytes, seed: int) -> dict:
     cv.jpeg_transform = evented(originals["jpeg_transform"])
     cv.downsample2x2 = evented(originals["downsample2x2"])
     try:
-        opt = ConvertOptions(manifest={"uids": _uids(seed)}, device="cuda")
+        # one card named: the launch gates hold on a machine of several
+        opt = ConvertOptions(manifest={"uids": _uids(seed)}, device="cuda",
+                             mesh=("cuda",))
         _zero_launches()
         cv.TRANSFER_STATS.reset()
         t0 = time.perf_counter()
@@ -2026,7 +2053,7 @@ def run_spine(seed: int, card: str) -> dict:
 
     def convert(data: bytes, meta: dict) -> bytes:
         opt = ConvertOptions(manifest={"uids": _pinned_uids(meta["slide_id"])},
-                             device="cuda")
+                             device="cuda", mesh=("cuda",))
         return convert_wsi_to_dicom(data, meta, opt)
 
     n_levels = len(_pyramid_dims(SPINE_SIZE, SPINE_SIZE, 256))
@@ -3696,6 +3723,181 @@ def run_roofline(seed: int, card: str) -> dict:
                 production=production, phase_s=time.perf_counter() - t0)
 
 
+# phase 15: the data mesh (level batches split over the visible cards)
+MESH_SIZE = 8192
+
+
+def _mesh_split() -> tuple:
+    """The split mesh: every visible card where there are several, else
+    the one card named twice (its two shards run one after the other)."""
+    import torch
+    n = torch.cuda.device_count()
+    return tuple(f"cuda:{i}" for i in range(n)) if n > 1 \
+        else ("cuda:0", "cuda:0")
+
+
+def _mesh_launches(counts: list, shards: int) -> int:
+    """Launches of one whole-level kernel over levels of ``counts`` tiles:
+    ``shards`` for a level the mesh divides, one for any other."""
+    return sum(shards if n and n % shards == 0 else 1 for n in counts)
+
+
+def _under(mesh, fn, *args):
+    from repro_torch.kernels import ops
+    with ops.use_mesh(mesh):
+        return fn(*args)
+
+
+def _device_copies(fn) -> dict:
+    """The device copies of one call of ``fn`` (after a warm call), read
+    from a profiler trace: the memcpy events the cards ran (``n``) and the
+    bytes they moved (``bytes``, from each event's metadata; None where an
+    event carries none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    n, moved = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or not e.name().startswith("Memcpy"):
+            continue
+        n += 1
+        try:
+            b = json.loads("{" + e.metadata_json() + "}").get("bytes")
+        except ValueError:
+            b = None
+        moved = None if moved is None or b is None else moved + int(b)
+    return dict(n=n, bytes=moved)
+
+
+def _mesh_kernel(name: str, x, split: tuple, one: tuple) -> tuple:
+    """One whole-level kernel on ``x`` under the split mesh and the
+    one-entry mesh: equal element for element, one launch a shard counted,
+    both timed (CUDA events, median of 10) and their device copies read
+    from a trace (:func:`_device_copies`). Returns the split result and
+    the record."""
+    import torch
+    from repro_torch.kernels import ops
+    fn = getattr(ops, name)
+    whole = _under(one, fn, x)
+    torch.cuda.synchronize()
+    _zero_launches()
+    got = _under(split, fn, x)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    shards = len(ops.data_sharding(x.shape[0], split))
+    want = {k: 0 for k in KERNELS}
+    want[name] = shards
+    if launches != want:
+        raise AssertionError(f"phase 15: {name} under {split} launched "
+                             f"{launches}, expected {shards} of {name}")
+    mism = int((got != whole).sum())
+    if got.dtype != whole.dtype or mism:
+        raise AssertionError(f"phase 15: {name} split over {split} differs "
+                             f"from the whole call at {mism} elements")
+    rec = dict(tiles=int(x.shape[0]), shards=shards,
+               launches=launches[name], mismatches=mism,
+               ms=_time_ms(lambda: _under(split, fn, x)),
+               whole_ms=_time_ms(lambda: _under(one, fn, x)),
+               copies=_device_copies(lambda: _under(split, fn, x)),
+               whole_copies=_device_copies(lambda: _under(one, fn, x)))
+    rec["split_over_whole"] = rec["ms"] / rec["whole_ms"]
+    del whole
+    return got, rec
+
+
+def _mesh_circle(slide: bytes, mesh: tuple, uids: str) -> dict:
+    """convert → DicomStoreService → ExportService of ``slide`` on the
+    card under ``mesh``: the tar's and the TIFFs' SHA-256, the launch
+    counts of the conversion and of the export, and their wall times."""
+    import hashlib
+    import torch
+    from repro_torch.core import ObjectStore, SimScheduler
+    from repro_torch.wsi import (ConvertOptions, DicomStoreService,
+                                 ExportService, convert_wsi_to_dicom)
+    _zero_launches()
+    t0 = time.perf_counter()
+    tar = convert_wsi_to_dicom(slide, {"slide_id": "mesh"}, ConvertOptions(
+        manifest={"uids": uids}, device="cuda", mesh=mesh))
+    convert_s = time.perf_counter() - t0
+    conv = _read_launches()
+    sched = SimScheduler()
+    store = ObjectStore(sched)
+    svc = DicomStoreService(store.bucket("dicom"), sched)
+    svc.store_study_archive("studies/mesh.tar", tar)
+    (study,) = svc.search_studies()
+    exporter = ExportService(svc, store.bucket("derived"), device="cuda",
+                             mesh=mesh)
+    _zero_launches()
+    t0 = time.perf_counter()
+    keys = exporter.export_study(study)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    exp = _read_launches()
+    tifs = b"".join(exporter.derived.get(k).data for k in sorted(keys))
+    return dict(mesh=list(mesh), tar_sha256=hashlib.sha256(tar).hexdigest(),
+                tiff_sha256=hashlib.sha256(tifs).hexdigest(),
+                levels=len(keys), convert_launches=conv,
+                export_launches=exp, convert_s=convert_s, export_s=export_s)
+
+
+def run_data_mesh(slide: bytes, seed: int, card: str) -> dict:
+    """Phase 15: the data mesh on the card (module doc). (a) Phase 5's
+    level-0 tile batch through ``jpeg_transform`` and its coefficients
+    through ``jpeg_inverse`` under the split mesh, each equal to the
+    one-entry mesh's call and launched once a shard; (b) a MESH_SIZE²
+    slide's convert → store → export circle under the split mesh and the
+    one-entry mesh: equal tar and TIFF digests, launch counts at the
+    levels × shards for the levels that split."""
+    import torch
+    from repro_torch.wsi import SyntheticScanner
+    from repro_torch.wsi.convert import _pyramid_dims
+    t0 = time.perf_counter()
+    split, one = _mesh_split(), ("cuda:0",)
+    tiles = _tile_tensor(slide, torch.device("cuda"))
+    coef, transform = _mesh_kernel("jpeg_transform", tiles, split, one)
+    del tiles
+    _, inverse = _mesh_kernel("jpeg_inverse", coef, split, one)
+    del coef
+    _free()
+    kernels = {"jpeg_transform": transform, "jpeg_inverse": inverse}
+    for name, rec in kernels.items():
+        _log(f"phase 15 {name} ({card}): " + json.dumps(rec))
+
+    small = SyntheticScanner(seed=seed + 20).scan(MESH_SIZE, MESH_SIZE, 256)
+    uids = _uids(seed + 20)
+    circles = {"split": _mesh_circle(small, split, uids),
+               "one": _mesh_circle(small, one, uids)}
+    counts = [(h // 256) * (w // 256)
+              for h, w in _pyramid_dims(MESH_SIZE, MESH_SIZE, 256)]
+    for name, c in circles.items():
+        shards = len(split) if name == "split" else 1
+        want_conv = {k: 0 for k in KERNELS}
+        want_conv.update(jpeg_transform=_mesh_launches(counts, shards),
+                         downsample2x2=len(counts) - 1)
+        want_exp = {k: 0 for k in KERNELS}
+        want_exp.update(jpeg_inverse=_mesh_launches(counts, shards),
+                        entropy_decode=len(counts))
+        if c["convert_launches"] != want_conv or \
+                c["export_launches"] != want_exp or c["levels"] != len(counts):
+            raise AssertionError(f"phase 15 circle {name}: {c}, expected "
+                                 f"{want_conv} and {want_exp}")
+        _log(f"phase 15 circle {name} ({card}): " + json.dumps(c))
+    for key in ("tar_sha256", "tiff_sha256"):
+        if circles["split"][key] != circles["one"][key]:
+            raise AssertionError(f"phase 15: the circle's {key} differs "
+                                 f"under {split}: {circles}")
+    return dict(card=card, mesh=list(split), kernels=kernels,
+                circle_size=MESH_SIZE, level_tiles=counts, circles=circles,
+                phase_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3753,8 +3955,12 @@ def main() -> int:
 
     done("1-2 + scan")
 
-    # 3. kernels vs plain versions
-    kernels = check_kernels(args.size, slide, args.seed)
+    # 3. kernels vs plain versions (phases 3, 5, 6 and 10 on the one card:
+    # their gates count one block-kernel launch a level)
+    from repro_torch.kernels import ops
+    one_card = ("cuda",)
+    with ops.use_mesh(one_card):
+        kernels = check_kernels(args.size, slide, args.seed)
     for k in kernels.values():
         _log(f"kernel {k['name']}: {k['mismatches']} mismatches, "
              f"{k['ms']:.5f} ms (plain {k['plain_ms']:.3f}, bound "
@@ -3776,7 +3982,8 @@ def main() -> int:
     done("5")
 
     # 6. the read side of the main path's study
-    read_side = run_read_side(args.size, slide, tar)
+    with ops.use_mesh(one_card):
+        read_side = run_read_side(args.size, slide, tar)
     _log("read side: " + json.dumps(read_side))
     done("6")
 
@@ -3826,6 +4033,11 @@ def main() -> int:
     _log("roofline: " + json.dumps(roofline))
     done("14")
 
+    # 15. the data mesh: level batches split over the cards
+    data_mesh = run_data_mesh(slide, args.seed, card)
+    _log("data mesh: " + json.dumps(data_mesh))
+    done("15")
+
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,
                "rgb2ycbcr": per_tile, "dct8x8_quant": per_tile,
@@ -3840,6 +4052,9 @@ def main() -> int:
     kernels["wkv_chunk"].update(
         train_launches=training["main"]["launches_per_step"],
         train_timed=training["wkv"]["timed"])
+    # and under the data mesh (phase 15a): one launch a shard
+    for name, rec in data_mesh["kernels"].items():
+        kernels[name]["mesh"] = rec
 
     _log("phase_s: " + json.dumps(phase_s))
     _log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -19,12 +19,29 @@ that its main path went through the kernels. Under a roofline counter
 work formula (``roofline.work``) once, whichever version runs, and hides
 its body's aten ops from the counter.
 
+**The data mesh** (``repro.kernels.ops``' mesh layer): the whole-level
+kernels ``jpeg_transform`` and ``jpeg_inverse`` take an (N, 3, T, T)
+batch whose tiles are independent, and split it over the ambient mesh, a
+tuple of devices (:func:`default_mesh`: every visible card, starting with
+the tensor's own; :func:`use_mesh` scopes another, per thread). A batch
+that the mesh divides (:func:`data_sharding`) goes to the mesh's devices
+in equal contiguous shards, one launch each; the results are gathered
+into one tensor on the caller's device, so the wrappers keep their
+signatures. A shard on the caller's card is a view of the batch and
+writes into a view of the result; a shard on another card is copied
+there and back by ATen's device-to-device ``copy_``. A card named twice
+runs its shards one after the other. The per-tile math does not depend
+on the batch, so a split call equals the whole call bit for bit.
+``downsample2x2`` and ``entropy_decode`` run whole, as in ``repro``.
+
 Unlike ``repro.kernels.ops`` there is no power-of-two bucketing of the
 batch: eager PyTorch has no jit cache to keep small, so a level of any
 size is one launch at its own shape.
 """
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from functools import lru_cache, wraps
 
 import numpy as np
@@ -38,7 +55,8 @@ from repro_torch.roofline import work
 __all__ = ["jpeg_transform", "downsample2x2", "jpeg_inverse", "rgb2ycbcr",
            "dct8x8_quant", "idct8x8_dequant", "entropy_decode", "ENTROPY_THREADS",
            "wkv_chunk", "wkv_scratch_floats", "wkv_scratch_views",
-           "WkvChunk", "launch_counts"]
+           "WkvChunk", "launch_counts", "default_mesh", "use_mesh",
+           "data_sharding"]
 
 
 def _launches_kernel(x: torch.Tensor, name: str, ndim: int, impl: str,
@@ -154,6 +172,108 @@ def _launch(name: str, t: torch.Tensor, *args) -> None:
                            f"{err}")
 
 
+# --------------------------------------------------------------------------
+# the data mesh: which devices whole-level batches are split over
+# --------------------------------------------------------------------------
+_MESH_TLS = threading.local()
+
+
+def _mesh_devices(mesh) -> tuple[torch.device, ...]:
+    """A mesh as a tuple of ``torch.device``, each CUDA entry with its
+    index (``"cuda"`` is the current card)."""
+    devs = []
+    for d in mesh:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"mesh device {d}: no CUDA device is "
+                                   "available")
+            d = torch.device("cuda", torch.cuda.current_device())
+        devs.append(d)
+    if not devs:
+        raise ValueError("a mesh names at least one device")
+    return tuple(devs)
+
+
+def default_mesh(device="cuda") -> tuple[torch.device, ...]:
+    """The ambient mesh for whole-level batches on ``device``.
+
+    The mesh :func:`use_mesh` scoped on this thread, if any; otherwise,
+    for a CUDA ``device``, every visible card, ``device`` first and the
+    others after it in index order (wrapping round), and for any other
+    device that device alone. It never moves to the CPU on its own: a CUDA
+    device on a machine without one raises."""
+    mesh = getattr(_MESH_TLS, "mesh", None)
+    if mesh is not None:
+        return mesh
+    (dev,) = _mesh_devices((device,))
+    if dev.type != "cuda":
+        return (dev,)
+    n = torch.cuda.device_count()
+    return tuple(torch.device("cuda", (dev.index + i) % n)
+                 for i in range(n))
+
+
+@contextmanager
+def use_mesh(devices):
+    """Scope the ambient mesh (thread-local) for the whole-level kernels:
+    ``devices`` is a sequence of devices (or their names), a card possibly
+    named more than once. Restores the previous scope on exit."""
+    prev = getattr(_MESH_TLS, "mesh", None)
+    _MESH_TLS.mesh = _mesh_devices(devices)
+    try:
+        yield _MESH_TLS.mesh
+    finally:
+        _MESH_TLS.mesh = prev
+
+
+def data_sharding(n: int, mesh) -> list[tuple[torch.device, slice]]:
+    """How a leading batch of ``n`` lies on ``mesh``: ``(device, rows)``
+    per shard. ``len(mesh)`` contiguous equal shards, in mesh order, when
+    ``n > 0`` and the mesh divides it; otherwise the whole batch on the
+    mesh's first device (a batch that does not divide still gives the same
+    bytes, without the split)."""
+    mesh = _mesh_devices(mesh)
+    m = len(mesh)
+    if n <= 0 or n % m:
+        return [(mesh[0], slice(0, n))]
+    k = n // m
+    return [(d, slice(i * k, (i + 1) * k)) for i, d in enumerate(mesh)]
+
+
+def _batched_call(x: torch.Tensor, dtype: torch.dtype, name: str,
+                  run) -> torch.Tensor:
+    """The mesh policy of the (N, 3, T, T) kernels (module doc):
+    ``run(part, out)`` computes the rows ``part`` into ``out``, a tensor
+    of ``dtype`` of ``part``'s shape on ``part``'s device. Returns the
+    gathered result on ``x.device``.
+
+    A mesh whose device type is not ``x``'s raises ``ValueError``: no
+    tensor changes device type. Cross-card copies go through ATen's
+    ``copy_``, which makes each card's current stream wait for the other's
+    before the copy and the destination's wait for the copy after it, so
+    the shards and the result are freed safely on their own streams."""
+    mesh = default_mesh(x.device)
+    if any(d.type != x.device.type for d in mesh):
+        raise ValueError(f"{name}: the mesh {[str(d) for d in mesh]} "
+                         f"mixes device types with a tensor on {x.device}")
+    out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    for dev, rows in data_sharding(x.shape[0], mesh):
+        part, dst = x[rows], out[rows]
+        if dev == x.device:
+            # the kernels read their input a 4-byte sample a lane (a view
+            # at any offset) and store their output in 16-byte pieces
+            if x.is_cuda:
+                _check_aligned(dst, f"{name}: a shard's result")
+            run(part, dst)
+            continue
+        part = part.to(dev, non_blocking=True)
+        res = torch.empty(part.shape, dtype=dtype, device=dev)
+        run(part, res)
+        dst.copy_(res, non_blocking=True)
+    return out
+
+
 @_counted("jpeg_transform", lambda tiles, *a, **k:
           work.jpeg_transform_work(tiles.shape))
 def jpeg_transform(tiles: torch.Tensor, qluma=None, qchroma=None,
@@ -162,23 +282,29 @@ def jpeg_transform(tiles: torch.Tensor, qluma=None, qchroma=None,
 
     The whole-level dispatch: one launch transform-codes every tile of a
     pyramid level (level-shifted YCbCr, per-channel 8×8 DCT, ``round(y/q)``
-    with the luma table for Y and the chroma table for Cb/Cr). H and W must
-    be multiples of 8 (the pyramid's tiles are square, T × T). ``N == 0`` (a level smaller than one tile) launches
-    nothing and returns an empty int32 tensor. ``qluma``/``qchroma`` default
-    to the Annex-K tables.
+    with the luma table for Y and the chroma table for Cb/Cr), or one per
+    shard where the ambient mesh splits the batch (module doc). H and W
+    must be multiples of 8 (the pyramid's tiles are square, T × T).
+    ``N == 0`` (a level smaller than one tile) launches nothing and returns
+    an empty int32 tensor. ``qluma``/``qchroma`` default to the Annex-K
+    tables.
     """
     _check_blocks(tiles, "jpeg_transform", "tiles")
-    if not _launches_kernel(tiles, "jpeg_transform", 4, impl):
-        return ref.jpeg_transform_ref(tiles, qluma, qchroma)
-    N, _, H, W = tiles.shape
-    out = torch.empty(tiles.shape, dtype=torch.int32, device=tiles.device)
-    if N == 0:
-        return out
-    q = _host_tables(qluma, qchroma)
-    _launch("jpeg_transform", tiles, tiles.data_ptr(), out.data_ptr(), N, H,
-            W, q.ctypes.data)
-    _count(jpeg_transform)
-    return out
+    launch = _launches_kernel(tiles, "jpeg_transform", 4, impl)
+    q = _host_tables(qluma, qchroma) if launch else None
+
+    def run(x: torch.Tensor, out: torch.Tensor) -> None:
+        if not launch:
+            out.copy_(ref.jpeg_transform_ref(x, qluma, qchroma))
+            return
+        N, _, H, W = x.shape
+        if N == 0:
+            return
+        _launch("jpeg_transform", x, x.data_ptr(), out.data_ptr(), N, H, W,
+                q.ctypes.data)
+        _count(jpeg_transform)
+
+    return _batched_call(tiles, torch.int32, "jpeg_transform", run)
 
 
 jpeg_transform.launches = 0
@@ -218,22 +344,28 @@ def jpeg_inverse(coef: torch.Tensor, qluma=None, qchroma=None,
 
     The whole-level inverse dispatch: one launch decode-transforms every
     tile of a stored level (dequantize with the luma table for Y and the
-    chroma table for Cb/Cr, 8×8 iDCT, YCbCr → RGB, ``clip(round(·))``).
-    H and W must be multiples of 8; ``N == 0`` launches nothing.
-    ``qluma``/``qchroma`` default to the Annex-K tables.
+    chroma table for Cb/Cr, 8×8 iDCT, YCbCr → RGB, ``clip(round(·))``), or
+    one per shard where the ambient mesh splits the batch, as
+    :func:`jpeg_transform` does. H and W must be multiples of 8; ``N ==
+    0`` launches nothing. ``qluma``/``qchroma`` default to the Annex-K
+    tables.
     """
     _check_blocks(coef, "jpeg_inverse", "coefficients")
-    if not _launches_kernel(coef, "jpeg_inverse", 4, impl, torch.int32):
-        return ref.jpeg_inverse_ref(coef, qluma, qchroma)
-    N, _, H, W = coef.shape
-    out = torch.empty(coef.shape, dtype=torch.uint8, device=coef.device)
-    if N == 0:
-        return out
-    q = _host_tables(qluma, qchroma)
-    _launch("jpeg_inverse", coef, coef.data_ptr(), out.data_ptr(), N, H, W,
-            q.ctypes.data)
-    _count(jpeg_inverse)
-    return out
+    launch = _launches_kernel(coef, "jpeg_inverse", 4, impl, torch.int32)
+    q = _host_tables(qluma, qchroma) if launch else None
+
+    def run(x: torch.Tensor, out: torch.Tensor) -> None:
+        if not launch:
+            out.copy_(ref.jpeg_inverse_ref(x, qluma, qchroma))
+            return
+        N, _, H, W = x.shape
+        if N == 0:
+            return
+        _launch("jpeg_inverse", x, x.data_ptr(), out.data_ptr(), N, H, W,
+                q.ctypes.data)
+        _count(jpeg_inverse)
+
+    return _batched_call(coef, torch.uint8, "jpeg_inverse", run)
 
 
 jpeg_inverse.launches = 0
@@ -397,9 +529,11 @@ WKV_KERNELS_PER_CALL = 3
 
 def _check_aligned(t: torch.Tensor, what: str) -> None:
     """The wkv kernel moves r, k, v, logw and its scratch in 16-byte pieces
-    (``cp.async``), so their data must start on a 16-byte boundary: a
-    contiguous view at an offset that is not a multiple of 4 floats would
-    fault on the card and poison its context. A fake tensor (the dry run)
+    (``cp.async``), and the block kernels store their outputs so, so that
+    data must start on a 16-byte boundary: a contiguous view at an offset
+    that is not a multiple of 16 bytes would fault on the card and poison
+    its context (a mesh shard's result is a view at an offset: a whole
+    number of tiles, a multiple of 192 bytes). A fake tensor (the dry run)
     has no data to check."""
     from torch._subclasses.fake_tensor import FakeTensor
 

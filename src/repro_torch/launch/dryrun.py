@@ -37,7 +37,13 @@ Usage:
 process's own device with real tensors (``device="cuda"``; the CPU only
 when asked for, ``device="cpu"``) or on meta tensors of the same program
 (``device="meta"``): chip_smoke.py's phase 14 holds the card's counts to
-the meta run's and the time to the bound. Meta tensors, not
+the meta run's and the time to the bound. Under a real process group
+(``gloo`` or ``nccl``), a local cell with ``mesh_shape`` runs on that
+group's ranks laid out in that shape (``launch.mesh.make_local_mesh``),
+its arguments drawn whole from the seed on every rank and laid out by the
+policy's placements: the step issues real collectives, which
+tests/test_torch_train_mesh.py counts against the fake group's run of
+the same cell. Meta tensors, not
 ``FakeTensorMode``: a fake mode stays active through the step and turns
 DTensor's own bookkeeping on the mesh's tensors fake too, where sharding
 propagation then fails on data-dependent reads; a meta tensor carries its
@@ -208,7 +214,8 @@ def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
     ``ModelConfig``, ``shape`` a shape name or a ``ShapeConfig``;
     ``mesh_kind`` is ``single`` or ``multi`` (meta tensors only) or
     ``local`` (this process's device); ``mesh_shape`` (a shape and its axis
-    names) puts another fake mesh in place of the production one;
+    names) puts another fake mesh in place of the production one, or, for
+    ``local`` under a real process group, lays the group's ranks out so;
     ``microbatches`` sets a train cell's count (default: the arch's
     ``TRAIN_MICROBATCHES``, else 1). With
     ``out_dir`` the record and the op table are written there. For a local cell on the card,
@@ -249,7 +256,8 @@ def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
         mesh = make_fake_mesh(*mesh_shape) if mesh_shape else \
             make_production_mesh(multi_pod=(mesh_kind == "multi"))
     elif mesh_kind == "local":
-        mesh = make_local_mesh("cpu" if meta else device)
+        mesh = make_local_mesh("cpu" if meta else device,
+                               *(mesh_shape or ()))
     else:
         raise ValueError(f"dryrun: unknown mesh {mesh_kind!r}")
     chips = mesh.size()
@@ -270,6 +278,11 @@ def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
     else:
         args = _real_args(cfg, shape, groups, torch.device(device), params,
                           seed)
+        if chips > 1:  # each rank keeps its shard of the whole draw
+            args = [shd.lay_out_tree(a, tree_map(
+                lambda d, p=p: shd.named_sharding(d.shape, d.logical, mesh,
+                                                  p), defs), mesh)
+                for a, (defs, p) in zip(args, groups)]
     arg_b = sum(_tree_bytes(a) if isinstance(a, dict) else _tree_bytes(
         {"x": a}) for a in args)
     cuda = not meta and torch.device(device).type == "cuda"

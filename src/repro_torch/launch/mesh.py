@@ -13,10 +13,14 @@ nothing, which is what the dry run needs to count them
 (``launch.dryrun``). A process builds one production mesh: the fake group
 is the process's default group.
 
-``make_local_mesh`` is this process's own card (or the CPU when asked
-for it) as a one-device ``("data",)`` mesh: PyTorch drives one device per
-process, so the visible cards form a mesh only across processes
-(ROADMAP A6).
+``make_local_mesh`` is the training mesh of whatever ranks exist: under an
+initialised process group (``torchrun``; ``gloo`` on the CPU, ``nccl`` on
+cards) every rank on one ``("data",)`` axis, as the reference's local
+mesh is every visible device; without one, this process's own card (or
+the CPU when asked for it) as a one-device mesh. A ``DeviceMesh`` is one
+device per rank. The conversion's data mesh is another thing: one process
+drives every visible card through ``kernels.ops.use_mesh``, a plain tuple
+of devices.
 """
 from __future__ import annotations
 
@@ -67,15 +71,33 @@ def make_fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
     return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
 
 
-def make_local_mesh(device=None):
-    """This process's device as a one-device ``("data",)`` mesh: the
-    current CUDA card by default; ``device="cpu"`` for the CPU. Raises
-    when no CUDA card is visible and the CPU was not asked for."""
-    from torch.distributed.device_mesh import DeviceMesh
+def make_local_mesh(device=None, shape=None, axes=("data",)):
+    """Every rank of this process's group on a ``("data",)`` axis (the
+    dry run's fake group aside), each on its own ``device``: ``"cuda"``
+    (each rank's card) for an ``nccl`` group, ``"cpu"`` for any other,
+    unless ``device`` says; ``shape`` and ``axes`` lay the ranks out
+    otherwise (a (2, 2) ``("data", "model")`` mesh of 4 ranks). Without a
+    group, this process's device as a one-device mesh: the current CUDA
+    card by default, ``device="cpu"`` for the CPU. Raises when a CUDA
+    device is asked for and none is visible."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-    dev = torch.device(device if device is not None else "cuda")
+    grouped = dist.is_available() and dist.is_initialized() and \
+        dist.get_backend() != "fake"
+    if device is None:
+        device = "cuda" if not grouped or "nccl" in str(
+            dist.get_backend()) else "cpu"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_local_mesh: no CUDA device is visible "
                            "(pass device='cpu' for the CPU)")
+    if grouped:
+        shape = (dist.get_world_size(),) if shape is None else tuple(shape)
+        return init_device_mesh(dev.type, shape,
+                                mesh_dim_names=tuple(axes))
+    if shape is not None and tuple(shape) != (1,) * len(shape):
+        raise ValueError(f"make_local_mesh: a {tuple(shape)} mesh needs a "
+                         f"process group of its ranks")
     return DeviceMesh(dev.type, torch.arange(1), mesh_dim_names=("data",),
                       _init_backend=False, _rank=0)

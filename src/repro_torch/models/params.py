@@ -95,6 +95,15 @@ def materialize(defs, generator: torch.Generator, device,
     for mixtral's 16-layer experts) never exists. The numbers differ from
     ``repro``'s ``jax.random`` draws for the same seed; the rules are the
     same.
+
+    Under a sharding mesh of more than one device
+    (``sharding.set_mesh``; a real process group, each rank drawing from
+    the same seed) every rank draws every leaf as without a mesh and keeps
+    only its shard of it (``sharding.shard_box``, by the policy's
+    placements) as a DTensor: the values do not depend on the mesh, as the
+    reference's sharded init's do not. A stacked leaf's shard is filled one
+    drawn layer slice at a time, so no rank holds the whole leaf; a leaf
+    without a ``layers`` axis is drawn whole in float32, then cut.
     """
     device = torch.device(device)
 
@@ -103,30 +112,49 @@ def materialize(defs, generator: torch.Generator, device,
                           device=device)
         return arr.mul_(std)
 
-    def make(d: ParamDef) -> torch.Tensor:
+    def make(d: ParamDef, box: tuple) -> torch.Tensor:
+        """The leaf's values in ``box`` (a slice a dim of the whole)."""
         dtype = dtype_override or d.dtype
+        shape = tuple(s.stop - s.start for s in box)
         if d.init == "zeros":
-            return torch.zeros(d.shape, dtype=dtype, device=device)
+            return torch.zeros(shape, dtype=dtype, device=device)
         if d.init == "ones":
-            return torch.ones(d.shape, dtype=dtype, device=device)
+            return torch.ones(shape, dtype=dtype, device=device)
         if d.init == "unwritten":
-            return torch.full(d.shape, UNWRITTEN, dtype=dtype, device=device)
+            return torch.full(shape, UNWRITTEN, dtype=dtype, device=device)
         std = d.scale if d.scale is not None else 1.0 / math.sqrt(max(_fan_in(d), 1))
         if d.init == "small":
             std = 0.02
         if not (d.logical and d.logical[0] == "layers"):
-            return draw(d.shape, std).to(dtype)
-        out = torch.empty(d.shape, dtype=dtype, device=device)
+            full = draw(d.shape, std)
+            if shape == tuple(d.shape):
+                return full.to(dtype)
+            return torch.empty(shape, dtype=dtype, device=device).copy_(
+                full[box])
+        out = torch.empty(shape, dtype=dtype, device=device)
+        rows = box[0]
         for i in range(d.shape[0]):  # one layer's slice at a time
-            out[i] = draw(d.shape[1:], std)
+            layer = draw(d.shape[1:], std)  # every slice: the same stream
+            if rows.start <= i < rows.stop:
+                out[i - rows.start] = layer[box[1:]]
         return out
 
+    from repro_torch import sharding as shd
+
+    mesh = shd.current_mesh()
+    if mesh is not None and mesh.size() == 1:
+        mesh = None
     out: dict = {}
     for path, d in tree_defs(defs):  # sorted order: draws are reproducible
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = make(d)
+        if mesh is None:
+            node[path[-1]] = make(d, tuple(slice(0, n) for n in d.shape))
+            continue
+        pl = shd.named_sharding(d.shape, d.logical, mesh)
+        node[path[-1]] = shd.from_shard(
+            make(d, shd.shard_box(d.shape, pl, mesh)), d.shape, pl, mesh)
     return out
 
 

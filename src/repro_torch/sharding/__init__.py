@@ -46,6 +46,11 @@ __all__ = [
     "dense",
     "index_write",
     "placed",
+    "shard_box",
+    "from_shard",
+    "lay_out",
+    "lay_out_tree",
+    "whole",
 ]
 
 # logical axis -> ordered candidate mesh-axis tuples
@@ -299,6 +304,28 @@ def index_write(dst, index, value) -> None:
     local[rows, slot] = torch.where(inside, val, local[rows, slot])
 
 
+def shard_box(shape, pl, mesh) -> tuple[slice, ...]:
+    """This rank's shard of a tensor of ``shape`` laid out by the
+    placements ``pl`` over ``mesh``: one slice a dim of the whole."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    local, off = compute_local_shape_and_global_offset(shape, mesh, pl)
+    return tuple(slice(o, o + n) for o, n in zip(off, local))
+
+
+def from_shard(local, shape, pl, mesh):
+    """The DTensor of global ``shape`` and placements ``pl`` over ``mesh``
+    whose shard on this rank is ``local`` (its :func:`shard_box` of the
+    whole, contiguous)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, tuple(pl), run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
 def placed(d, make, device):
     """A ParamDef's tensor made by ``make(shape, dtype, device)``: under a
     mesh of more than one device a DTensor of the policy's placements
@@ -306,13 +333,35 @@ def placed(d, make, device):
     mesh = current_mesh()
     if mesh is None or mesh.size() == 1:
         return make(d.shape, d.dtype, device)
-    from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-
     pl = named_sharding(d.shape, d.logical, mesh)
-    local, _ = compute_local_shape_and_global_offset(d.shape, mesh, pl)
-    full = make(d.shape, d.dtype, "meta")
-    return DTensor.from_local(make(local, d.dtype, device), mesh, pl,
-                              run_check=False, shape=d.shape,
-                              stride=full.stride())
+    local = tuple(s.stop - s.start for s in shard_box(d.shape, pl, mesh))
+    return from_shard(make(local, d.dtype, device), d.shape, pl, mesh)
+
+
+def lay_out(t, pl, mesh):
+    """``t`` as a DTensor of placements ``pl`` over ``mesh``. A whole
+    tensor, equal on every rank (a batch every rank reads alike), gives
+    each rank its own shard and moves nothing; a DTensor in other
+    placements is redistributed; one in ``pl`` is returned as it is. On a
+    mesh of one device, ``t`` itself."""
+    if mesh.size() == 1:
+        return t
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    pl = tuple(pl)
+    if isinstance(t, DTensor):
+        return t if tuple(t.placements) == pl else t.redistribute(mesh, pl)
+    return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+
+def lay_out_tree(tree, placements_tree, mesh):
+    """:func:`lay_out` leaf by leaf over nested dicts of the same
+    structure (a state and its ``state_shardings``)."""
+    return tree_map(lambda t, pl: lay_out(t, pl, mesh), tree,
+                    placements_tree)
+
+
+def whole(t):
+    """A DTensor's whole value on every rank (``full_tensor()``, a
+    collective); any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t

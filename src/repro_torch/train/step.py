@@ -11,8 +11,11 @@ between the gradient and the update.
 
 ``abstract_train_state`` builds the state as meta tensors, and
 ``state_shardings`` / ``batch_shardings`` give the policy's DTensor
-placements (``repro_torch.sharding``), for the dry run
-(``launch.dryrun``); the trainer itself runs on one device.
+placements (``repro_torch.sharding``): the dry run (``launch.dryrun``)
+counts the step on them, and under a mesh of ranks (``sharding.set_mesh``
+over ``launch.mesh.make_local_mesh``) :func:`init_train_state` lays the
+state out by them and the step runs on DTensors, its collectives issued
+by DTensor.
 """
 from __future__ import annotations
 
@@ -51,11 +54,17 @@ def train_state_defs(cfg, tc: TrainConfig) -> dict:
 def init_train_state(cfg, tc: TrainConfig, generator: torch.Generator,
                      device="cuda") -> dict:
     """Parameters drawn from ``generator`` (on ``device``), zero moments
-    and, with ``int8_ef``, a zero residual."""
+    and, with ``int8_ef``, a zero residual. Under a mesh of more than one
+    device (``sharding.set_mesh``) every leaf is a DTensor laid out by
+    :func:`state_shardings`, its values those of the one-device draw
+    (``params.materialize``)."""
     params = M.init_params(cfg, generator, device)
     state = {"params": params, "opt": init_opt(params)}
     if tc.compress == "int8_ef":
         state["ef"] = ef_init(params)
+    mesh = shd.current_mesh()
+    if mesh is not None and mesh.size() > 1:
+        state = shd.lay_out_tree(state, state_shardings(cfg, tc, mesh), mesh)
     return state
 
 

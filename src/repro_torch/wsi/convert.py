@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core import tracing
 from repro_torch.kernels import downsample2x2, jpeg_transform
+from repro_torch.kernels.ops import use_mesh
 from repro_torch.wsi.dicom import (TS_EXPLICIT_LE, TS_JPEG_BASELINE, new_uid,
                                    write_part10)
 from repro_torch.wsi.formats import SlideReader, open_slide
@@ -83,16 +84,27 @@ class ConvertOptions:
         what ``None`` means), ``"cuda:<i>"`` or ``"cpu"``. A CUDA device on
         a machine without one raises; the converter never moves to the CPU
         unless asked.
+    mesh
+        Optional sequence of devices (of ``device``'s type; a card may be
+        named more than once): scope the conversion's ``jpeg_transform``
+        launches to this mesh, each level's tile batch split over it (see
+        ``kernels.ops.use_mesh``). ``None`` (default) uses the ambient mesh
+        (every visible card, ``device`` first). The pyramid, the
+        downsample chain and the coefficient fetches stay on ``device``.
+        The split never changes output bytes, only where tiles are
+        computed.
     """
 
     def __init__(self, *, min_level_size: int = 256, jpeg: bool = True,
                  manifest: dict | None = None, batched: bool = True,
-                 pipelined: bool = True, device: str | None = "cuda"):
+                 pipelined: bool = True, device: str | None = "cuda",
+                 mesh=None):
         self.min_level_size = min_level_size
         self.jpeg = jpeg
         self.batched = batched
         self.pipelined = pipelined
         self.device = device
+        self.mesh = mesh
         self.manifest = manifest if manifest is not None else {}
 
     def clear_manifest(self) -> None:
@@ -221,8 +233,11 @@ def _fetch_async(coef: torch.Tensor, copy_stream) -> tuple:
 
     On CUDA the copy runs on ``copy_stream`` into pinned memory, behind an
     event recorded on the current stream after the level's transform, and
-    returns ``(host tensor, completion event)``. On the CPU the tensor is
-    already on the host.
+    returns ``(host tensor, completion event)``. ``coef`` is the
+    transform's gathered result on the home card: a shard computed on
+    another card was copied into it on that card's stream, which the home
+    card's current stream waits on, so the event covers every shard. On
+    the CPU the tensor is already on the host.
     """
     if copy_stream is None or coef.numel() == 0:
         return coef.cpu(), None
@@ -375,11 +390,12 @@ def convert_wsi_to_dicom(slide_bytes: bytes, metadata: dict | None = None,
     # events and streams below belong to the current CUDA device
     ctx = torch.cuda.device(device) if device.type == "cuda" \
         else nullcontext()
+    mesh = use_mesh(opt.mesh) if opt.mesh is not None else nullcontext()
     stats0 = (TRANSFER_STATS.uploads, TRANSFER_STATS.dispatches,
               TRANSFER_STATS.fetches)
     with tracing.span("convert.slide",
                       slide=(metadata or {}).get("slide_id")) as sp:
-        with ctx:
+        with ctx, mesh:
             if opt.pipelined and opt.jpeg and opt.batched:
                 n_levels = _convert_pipelined(rd, metadata, opt, study_uid,
                                               series_uid, device)

@@ -41,10 +41,13 @@ reason, so after the retry budget it becomes the dead-letter's
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 from repro_torch.analysis.lockdep import TrackedLock
 from repro_torch.core import tracing
 from repro_torch.core.pubsub import DeliveryCtx, Message, Subscription, Topic
 from repro_torch.core.storage import Bucket
+from repro_torch.kernels.ops import use_mesh
 from repro_torch.wsi.formats import write_tiff
 from repro_torch.wsi.jpeg import decode_frames
 from repro_torch.wsi.store_service import DicomStoreService
@@ -65,16 +68,23 @@ class ExportService:
     ``"cuda"``, the default; ``"cpu"`` runs their plain versions). A CUDA
     device on a machine without one raises. The device never changes the
     exported bytes on slide content.
+
+    ``mesh`` (optional sequence of devices of ``device``'s type) scopes the
+    decode path's ``jpeg_inverse`` launches: each level's frame batch is
+    split over it (see ``kernels.ops.use_mesh``); ``None`` is the ambient
+    mesh. The entropy decode runs whole on ``device``. The split never
+    changes the exported bytes.
     """
 
     def __init__(self, store: DicomStoreService, derived: Bucket, *,
                  request_topic: Topic | None = None, dlq: Topic | None = None,
                  name: str = "dicom2tiff", ack_deadline: float = 600.0,
                  max_delivery_attempts: int = 5, min_backoff: float = 10.0,
-                 max_backoff: float = 600.0, device="cuda"):
+                 max_backoff: float = 600.0, device="cuda", mesh=None):
         self.store = store
         self.derived = derived
         self.device = device
+        self.mesh = mesh
         self.metrics = store.metrics
         self._lock = TrackedLock("ExportService._lock")
         self.exported: list[tuple[str, tuple[str, ...]]] = []
@@ -121,11 +131,15 @@ class ExportService:
             if not metas:
                 raise KeyError(f"unknown study {study_uid}")
             keys = []
-            for li, meta in enumerate(metas):
-                key = self._export_level(study_uid, li, meta, skip_unchanged)
-                if key is not None:
-                    keys.append(key)
-                    tracing.add_event(None, "export.level", key=key)
+            ctx = use_mesh(self.mesh) if self.mesh is not None \
+                else nullcontext()
+            with ctx:
+                for li, meta in enumerate(metas):
+                    key = self._export_level(study_uid, li, meta,
+                                             skip_unchanged)
+                    if key is not None:
+                        keys.append(key)
+                        tracing.add_event(None, "export.level", key=key)
         with self._lock:
             self.exported.append((study_uid, tuple(keys)))
         return keys

@@ -299,11 +299,16 @@ def test_shardings_mirror_the_state():
 
 
 def test_multi_device_training_stays_refused(tmp_path):
-    """Training on the production mesh and the re-shard on restore need
-    more than one card: both refused, naming ROADMAP A6."""
+    """Training on the production mesh needs a process group of its 512
+    ranks, and the re-shard on restore a mesh to lay the leaves out on:
+    without them both are refused (tests/test_torch_train_mesh.py trains
+    and re-shards on real ranks)."""
     from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import PRODUCTION_SHAPES, make_local_mesh
     from repro_torch.train.checkpoint import restore_checkpoint
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         restore_checkpoint(tmp_path, {}, shardings={})
+    with pytest.raises(ValueError, match="needs a process group"):
+        make_local_mesh("cpu", *PRODUCTION_SHAPES["multi"])
     with pytest.raises(SystemExit):
         launch.parse_args(["--arch", "rwkv6-3b", "--multi-pod"])

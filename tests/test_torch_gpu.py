@@ -1,11 +1,16 @@
 """The port on a CUDA card: each kernel vs its plain version, the
 converter, the decoders and the RWKV6 and dense serving paths on the
-card vs their CPU plain paths, the wkv kernel under autograd, and the
-engine's decode step as a CUDA graph against the eager step. Every
-test here is marked ``gpu`` and skips without a card; the file imports
-no JAX, so it runs on a GPU machine that has none:
+card vs their CPU plain paths, the wkv kernel under autograd, the
+engine's decode step as a CUDA graph against the eager step, and the
+block kernels and the converter under a data mesh that names the card
+twice. Every test here is marked ``gpu`` and skips without a card; the
+file imports no JAX, so it runs on a GPU machine that has none:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+The launch counts assume one visible card (the default data mesh is
+every visible card): on a machine of several, run it under
+``CUDA_VISIBLE_DEVICES=0``.
 """
 import dataclasses
 import json
@@ -125,6 +130,40 @@ def test_block_kernels_take_views_off_a_16_byte_boundary(cuda_device, name,
         got = fn(x)
         assert fn.launches == n0 + 1
         assert torch.equal(got, fn(x, impl="ref")), off
+
+
+@pytest.mark.parametrize("n", [6, 5, 1])
+def test_block_kernels_split_over_one_card_named_twice(cuda_device, n):
+    """The data mesh on one card: a batch that two divides runs as two
+    launches on views of the batch and of the result, equal to the whole
+    call bit for bit; another runs whole, once."""
+    tiles = torch.from_numpy(_slide_tiles(19, 768)[:n]).to(cuda_device)
+    whole = ops.jpeg_transform(tiles)
+    rgb = ops.jpeg_inverse(whole)
+    shards = 2 if n % 2 == 0 else 1
+    with ops.use_mesh(("cuda:0", "cuda:0")):
+        for fn, x, want in ((ops.jpeg_transform, tiles, whole),
+                            (ops.jpeg_inverse, whole, rgb)):
+            n0 = fn.launches
+            got = fn(x)
+            assert fn.launches == n0 + shards
+            assert torch.equal(got, want), fn.__name__
+
+
+def test_conversion_under_a_split_mesh_equals_one_card(cuda_device):
+    psv = SyntheticScanner(seed=20).scan(1024, 1024, 256)
+    uids = json.dumps(["2.25.1", "2.25.2"])
+
+    def run(mesh, **kw):
+        opt = ConvertOptions(manifest={"uids": uids}, device="cuda",
+                             mesh=mesh, **kw)
+        return convert_wsi_to_dicom(psv, {"slide_id": "mesh"}, options=opt)
+
+    one = run(("cuda:0",))
+    n0 = ops.jpeg_transform.launches
+    assert run(("cuda:0", "cuda:0")) == one
+    assert ops.jpeg_transform.launches == n0 + 2 + 2 + 1  # 16, 4, 1 tiles
+    assert run(("cuda:0", "cuda:0"), pipelined=False) == one
 
 
 def test_conversion_on_card_matches_cpu_plain_path(cuda_device):

@@ -1,7 +1,7 @@
 """``python -m repro_torch.launch.train`` on the CPU: ``main`` trains the
 reduced gemma-2b and rwkv6-3b, checkpoints, and ``--resume`` restores the
 saved state leaf for leaf; ``run`` hands losses, step times and the state
-to a caller; ``--multi-pod`` is refused."""
+to a caller; ``--multi-pod`` is refused without a group of 512 ranks."""
 import math
 
 import pytest
@@ -46,8 +46,16 @@ def test_run_calls_on_step_after_each_step():
     assert [i for i, _ in seen] == [1, 2]
 
 
-def test_multi_pod_is_refused(capsys):
-    with pytest.raises(SystemExit) as e:
-        launch.parse_args(["--arch", "gemma-2b", "--multi-pod"])
-    assert e.value.code == 2
-    assert "sharding" in capsys.readouterr().err
+def test_multi_pod_is_refused(capsys, monkeypatch):
+    """Without a group of 512 ranks ``--multi-pod`` is refused, naming the
+    world size: this process alone, and a ``torchrun`` of 8."""
+    for world, env in (("1", None), ("8", "8")):
+        if env is None:
+            monkeypatch.delenv("WORLD_SIZE", raising=False)
+        else:
+            monkeypatch.setenv("WORLD_SIZE", env)
+        with pytest.raises(SystemExit) as e:
+            launch.parse_args(["--arch", "gemma-2b", "--multi-pod"])
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert f"world size {world}" in err and "512 ranks" in err, err
