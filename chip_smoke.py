@@ -280,19 +280,28 @@ raises (exit code ≠ 0) on any failed check:
     (4096 × (3, 256, 256) at 16384²) through ``jpeg_transform`` under the
     split mesh, and its coefficients through ``jpeg_inverse``: each equal
     to the one-entry mesh's call element for element, with the launch
-    counts zeroed just before, one launch a shard and no other kernel;
-    ``ms`` and ``whole_ms`` (CUDA events, median of 10), and each call's
-    device copies read from a profiler trace (``copies``,
-    ``whole_copies``: memcpy events and their bytes). (b) An 8192²
-    SyntheticScanner slide converted (``ConvertOptions(mesh=)``), stored
-    in a
-    ``DicomStoreService`` and exported (``ExportService(mesh=)``) under
-    the split mesh and under the one-entry mesh: the study tars' and the
-    TIFFs' SHA-256 equal; ``jpeg_transform`` and ``jpeg_inverse`` launched
-    once a shard at each level the mesh divides and once at the others,
+    counts zeroed just before, one launch a non-empty shard and no other
+    kernel; ``ms`` and ``whole_ms`` (CUDA events, median of 10), and each
+    call's device copies read from a profiler trace (``copies``,
+    ``whole_copies``: memcpy events and their bytes); the same for the
+    batch less one tile (4095: shards within one tile of each other,
+    ``uneven``). (b) A 7936² SyntheticScanner slide (levels of 961, 225,
+    49, 9 and 1 tiles, none of which two divides) converted
+    (``ConvertOptions(mesh=)``), stored in a ``DicomStoreService`` and
+    exported (``ExportService(mesh=)``) under the split mesh and under the
+    one-entry mesh: the study tars' and the TIFFs' SHA-256 equal;
+    ``jpeg_transform`` and ``jpeg_inverse`` launched once a non-empty
+    shard at each level (9 each on one card named twice, against 5),
     ``downsample2x2`` once a level step and ``entropy_decode`` once a
     level, unsplit. Prints both circles' digests, counts and times.
-    NCCL training across cards needs two cards or more and is not run.
+    NCCL training across cards needs two cards or more and is not run;
+16. the quickstart example — ``examples/torch_quickstart.py --device
+    cuda`` at its defaults (a 512² slide in two containers through the
+    event-driven pipeline, read back, exported) in a subprocess on the
+    kernels built in phase 2: exit 0, ``quickstart OK`` last, its kernel
+    launches (printed by the example) nonzero for ``jpeg_transform``,
+    ``downsample2x2``, ``jpeg_inverse`` and ``entropy_decode``, within
+    ``QUICKSTART_LIMIT_S`` seconds.
 
 Each phase's seconds are logged as it ends (``phase_s``). Prints the
 kernel JSON line and the card line before the last line, which is
@@ -3723,8 +3732,9 @@ def run_roofline(seed: int, card: str) -> dict:
                 production=production, phase_s=time.perf_counter() - t0)
 
 
-# phase 15: the data mesh (level batches split over the visible cards)
-MESH_SIZE = 8192
+# phase 15: the data mesh (level batches split over the visible cards);
+# the circle's levels hold 961, 225, 49, 9 and 1 tiles: none splits evenly
+MESH_SIZE = 7936
 
 
 def _mesh_split() -> tuple:
@@ -3738,8 +3748,8 @@ def _mesh_split() -> tuple:
 
 def _mesh_launches(counts: list, shards: int) -> int:
     """Launches of one whole-level kernel over levels of ``counts`` tiles:
-    ``shards`` for a level the mesh divides, one for any other."""
-    return sum(shards if n and n % shards == 0 else 1 for n in counts)
+    one a non-empty shard (``ops.data_sharding``), ``min(n, shards)``."""
+    return sum(min(n, shards) for n in counts)
 
 
 def _under(mesh, fn, *args):
@@ -3791,7 +3801,8 @@ def _mesh_kernel(name: str, x, split: tuple, one: tuple) -> tuple:
     got = _under(split, fn, x)
     torch.cuda.synchronize()
     launches = _read_launches()
-    shards = len(ops.data_sharding(x.shape[0], split))
+    shards = sum(rows.stop > rows.start
+                 for _, rows in ops.data_sharding(x.shape[0], split))
     want = {k: 0 for k in KERNELS}
     want[name] = shards
     if launches != want:
@@ -3851,10 +3862,11 @@ def run_data_mesh(slide: bytes, seed: int, card: str) -> dict:
     """Phase 15: the data mesh on the card (module doc). (a) Phase 5's
     level-0 tile batch through ``jpeg_transform`` and its coefficients
     through ``jpeg_inverse`` under the split mesh, each equal to the
-    one-entry mesh's call and launched once a shard; (b) a MESH_SIZE²
+    one-entry mesh's call and launched once a non-empty shard, and the
+    same for the batch less one tile (``uneven``); (b) a MESH_SIZE²
     slide's convert → store → export circle under the split mesh and the
-    one-entry mesh: equal tar and TIFF digests, launch counts at the
-    levels × shards for the levels that split."""
+    one-entry mesh: equal tar and TIFF digests, ``min(tiles, shards)``
+    launches a level."""
     import torch
     from repro_torch.wsi import SyntheticScanner
     from repro_torch.wsi.convert import _pyramid_dims
@@ -3862,8 +3874,13 @@ def run_data_mesh(slide: bytes, seed: int, card: str) -> dict:
     split, one = _mesh_split(), ("cuda:0",)
     tiles = _tile_tensor(slide, torch.device("cuda"))
     coef, transform = _mesh_kernel("jpeg_transform", tiles, split, one)
+    # the batch less one tile: shards within one tile of each other
+    _, transform["uneven"] = _mesh_kernel("jpeg_transform", tiles[:-1],
+                                          split, one)
     del tiles
     _, inverse = _mesh_kernel("jpeg_inverse", coef, split, one)
+    _, inverse["uneven"] = _mesh_kernel("jpeg_inverse", coef[:-1], split,
+                                        one)
     del coef
     _free()
     kernels = {"jpeg_transform": transform, "jpeg_inverse": inverse}
@@ -3896,6 +3913,46 @@ def run_data_mesh(slide: bytes, seed: int, card: str) -> dict:
     return dict(card=card, mesh=list(split), kernels=kernels,
                 circle_size=MESH_SIZE, level_tiles=counts, circles=circles,
                 phase_s=time.perf_counter() - t0)
+
+
+# phase 16: the quickstart example on the card
+QUICKSTART_LIMIT_S = 30.0
+QUICKSTART_KERNELS = ("jpeg_transform", "downsample2x2", "jpeg_inverse",
+                      "entropy_decode")
+
+
+def run_quickstart(card: str) -> dict:
+    """Phase 16: ``examples/torch_quickstart.py --device cuda`` at its
+    defaults in a subprocess (it loads the kernels phase 2 built): exit 0,
+    ``quickstart OK`` as its last line, its printed kernel launches
+    nonzero for QUICKSTART_KERNELS, within QUICKSTART_LIMIT_S seconds."""
+    import os
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+         "--device", "cuda"], capture_output=True, text=True,
+        timeout=4 * QUICKSTART_LIMIT_S, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    seconds = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    counts = [json.loads(ln.split(": ", 1)[1]) for ln in lines
+              if ln.startswith("kernel launches: ")]
+    psnr = [ln for ln in lines if "PSNR" in ln]
+    rec = dict(card=card, seconds=seconds, returncode=r.returncode,
+               launches=counts[0] if counts else None,
+               psnr_line=psnr[0] if psnr else None)
+    if r.returncode or not lines or lines[-1] != "quickstart OK":
+        raise AssertionError(f"phase 16: the quickstart exited "
+                             f"{r.returncode}: {r.stdout[-2000:]}"
+                             f"{r.stderr[-3000:]}")
+    if not counts or not all(counts[0][k] for k in QUICKSTART_KERNELS):
+        raise AssertionError(f"phase 16: the quickstart's kernel launches "
+                             f"{counts}: expected {QUICKSTART_KERNELS} "
+                             "launched")
+    if seconds > QUICKSTART_LIMIT_S:
+        raise AssertionError(f"phase 16: the quickstart took {seconds:.1f}"
+                             f" s, over {QUICKSTART_LIMIT_S} s")
+    return rec
 
 
 def main() -> int:
@@ -4037,6 +4094,11 @@ def main() -> int:
     data_mesh = run_data_mesh(slide, args.seed, card)
     _log("data mesh: " + json.dumps(data_mesh))
     done("15")
+
+    # 16. the quickstart example, as a user runs it
+    quickstart = run_quickstart(card)
+    _log("quickstart: " + json.dumps(quickstart))
+    done("16")
 
     # each kernel's launches in the run of the path that drives it
     path_of = {"downsample2x2": main_path, "jpeg_transform": main_path,

@@ -24,8 +24,9 @@ kernels ``jpeg_transform`` and ``jpeg_inverse`` take an (N, 3, T, T)
 batch whose tiles are independent, and split it over the ambient mesh, a
 tuple of devices (:func:`default_mesh`: every visible card, starting with
 the tensor's own; :func:`use_mesh` scopes another, per thread). A batch
-that the mesh divides (:func:`data_sharding`) goes to the mesh's devices
-in equal contiguous shards, one launch each; the results are gathered
+of ``n`` tiles goes to the mesh's devices in contiguous shards, in mesh
+order, whose sizes differ by at most one tile (:func:`data_sharding`),
+one launch for each shard that is not empty; the results are gathered
 into one tensor on the caller's device, so the wrappers keep their
 signatures. A shard on the caller's card is a view of the batch and
 writes into a view of the result; a shard on another card is copied
@@ -34,9 +35,11 @@ runs its shards one after the other. The per-tile math does not depend
 on the batch, so a split call equals the whole call bit for bit.
 ``downsample2x2`` and ``entropy_decode`` run whole, as in ``repro``.
 
-Unlike ``repro.kernels.ops`` there is no power-of-two bucketing of the
-batch: eager PyTorch has no jit cache to keep small, so a level of any
-size is one launch at its own shape.
+Unlike ``repro.kernels.ops`` the batch is not padded to a power of two
+before it is split (eager PyTorch has no jit cache to keep small), so
+every level of more than one tile splits, whatever its count. That is
+more levels than ``repro``'s padding splits: over a 3-card mesh, which
+divides no power of two, ``repro`` splits none.
 """
 from __future__ import annotations
 
@@ -229,21 +232,25 @@ def use_mesh(devices):
 
 def data_sharding(n: int, mesh) -> list[tuple[torch.device, slice]]:
     """How a leading batch of ``n`` lies on ``mesh``: ``(device, rows)``
-    per shard. ``len(mesh)`` contiguous equal shards, in mesh order, when
-    ``n > 0`` and the mesh divides it; otherwise the whole batch on the
-    mesh's first device (a batch that does not divide still gives the same
-    bytes, without the split)."""
+    per shard, contiguous and in mesh order. With ``k, r = divmod(n,
+    len(mesh))`` the first ``r`` shards hold ``k + 1`` rows and the rest
+    ``k``, so the sizes differ by at most one (76050 tiles on 8 entries:
+    9507 twice, then 9506 six times). Only the non-empty shards are
+    listed (3 on 4 entries: three shards of 1); ``n == 0`` is one empty
+    shard on the mesh's first device."""
     mesh = _mesh_devices(mesh)
-    m = len(mesh)
-    if n <= 0 or n % m:
-        return [(mesh[0], slice(0, n))]
-    k = n // m
-    return [(d, slice(i * k, (i + 1) * k)) for i, d in enumerate(mesh)]
+    if n <= 0:
+        return [(mesh[0], slice(0, 0))]
+    k, r = divmod(n, len(mesh))
+    ends = [i * k + min(i, r) for i in range(len(mesh) + 1)]
+    return [(d, slice(a, b)) for d, a, b in zip(mesh, ends, ends[1:])
+            if b > a]
 
 
 def _batched_call(x: torch.Tensor, dtype: torch.dtype, name: str,
                   run) -> torch.Tensor:
-    """The mesh policy of the (N, 3, T, T) kernels (module doc):
+    """The mesh policy of the (N, 3, T, T) kernels (module doc), one
+    ``run`` a shard of :func:`data_sharding`, no padding:
     ``run(part, out)`` computes the rows ``part`` into ``out``, a tensor
     of ``dtype`` of ``part``'s shape on ``part``'s device. Returns the
     gathered result on ``x.device``.

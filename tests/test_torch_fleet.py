@@ -4,16 +4,16 @@ per-tenant quotas, backlog shedding, duplicate-delivery dedupe — and the
 arrival-trace property (instance cap / quota cap / exactly-once-settled)
 as both a Hypothesis property and an always-run seeded sweep.
 
-The port's copy of ``tests/test_fleet.py``: the Figure 2/3 model comes from
-``tests/_torch_spine.py`` (``benchmarks/`` imports ``repro``)."""
+The port's copy of ``tests/test_fleet.py``: the Figure 2/3 model is the
+port's ``repro_torch.core.workflows``."""
 import random
 
 from _hypothesis_compat import given, settings, st
 
-from _torch_spine import (autoscaling_time, fig3_run,  # noqa: F401
-                          parallel_time, port_lockdep_armed,
-                          port_racedep_armed, serial_time)
+from _torch_spine import port_lockdep_armed, port_racedep_armed  # noqa: F401
 from repro_torch.core import (ConversionPipeline, ConverterFleet, SimScheduler)
+from repro_torch.core.workflows import (autoscaling_time, fig3_run,
+                                        parallel_time, serial_time)
 
 FLEET_KW = dict(fleet={}, ordered_ingest=True)
 TAU = 90.0

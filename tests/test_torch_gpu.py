@@ -132,15 +132,17 @@ def test_block_kernels_take_views_off_a_16_byte_boundary(cuda_device, name,
         assert torch.equal(got, fn(x, impl="ref")), off
 
 
-@pytest.mark.parametrize("n", [6, 5, 1])
+@pytest.mark.parametrize("n", [6, 5, 1, 4095])
 def test_block_kernels_split_over_one_card_named_twice(cuda_device, n):
-    """The data mesh on one card: a batch that two divides runs as two
-    launches on views of the batch and of the result, equal to the whole
-    call bit for bit; another runs whole, once."""
-    tiles = torch.from_numpy(_slide_tiles(19, 768)[:n]).to(cuda_device)
+    """The data mesh on one card: a batch of several tiles runs as two
+    launches on views of the batch and of the result (shards within one
+    tile of each other: 4095 as 2048 and 2047), equal to the whole call
+    bit for bit; a batch of one runs whole, once."""
+    slide = torch.from_numpy(_slide_tiles(19, 768)).to(cuda_device)
+    tiles = slide.repeat(-(-n // slide.shape[0]), 1, 1, 1)[:n].contiguous()
     whole = ops.jpeg_transform(tiles)
     rgb = ops.jpeg_inverse(whole)
-    shards = 2 if n % 2 == 0 else 1
+    shards = min(n, 2)
     with ops.use_mesh(("cuda:0", "cuda:0")):
         for fn, x, want in ((ops.jpeg_transform, tiles, whole),
                             (ops.jpeg_inverse, whole, rgb)):

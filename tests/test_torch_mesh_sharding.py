@@ -2,19 +2,22 @@
 ``tests/test_mesh_sharding.py``, on the CPU.
 
 - the mesh context: ``default_mesh`` (the CPU alone; a scoped mesh wins),
-  ``use_mesh`` scoping and restoring, ``data_sharding``'s split and its
-  whole-batch cases (a batch the mesh does not divide, the zero batch);
+  ``use_mesh`` scoping and restoring, ``data_sharding``'s contiguous
+  shards within one row of each other (batches the mesh does not divide
+  included: 5 on 4 entries is 2, 1, 1, 1; 3 on 4 lists three shards; a
+  100000 × 50000 scan's 76050 tiles on 8 entries), the zero batch;
 - the kernels: ``jpeg_transform`` and ``jpeg_inverse`` under a four-entry
-  CPU mesh equal the one-entry call exactly, an odd batch of 5 (not split)
-  included, and each shard is computed on its own rows;
+  CPU mesh equal the one-entry call exactly, uneven batches of 3, 5 and
+  12 included, each shard is computed on its own rows, and an empty shard
+  runs nothing;
 - a CUDA mesh over a CPU tensor raises ``ValueError``;
-- the convert → store → export circle of a 512² slide under a four-entry
+- the convert → store → export circle of a 512² slide (levels of 64 and
+  16 tiles) and of a ragged 448² slide (49, 9 and 1) under a four-entry
   mesh: its study tar and TIFF bytes equal the one-entry mesh's and
-  ``repro``'s single-device circle, computed in this process. The slide
-  has 64-px tiles where the reference's test has 256: the CPU's plain
+  ``repro``'s single-device circle, computed in this process. The slides
+  have 64-px tiles where the reference's test has 256: the CPU's plain
   entropy decode steps once per symbol of the longest tile (a 256² tile
-  takes ~20 s an export here), and the split is the same (64 and 16
-  frames, both divided by 4).
+  takes ~20 s an export here).
 """
 import hashlib
 import json
@@ -80,11 +83,11 @@ def test_a_mesh_names_a_device():
 @pytest.mark.parametrize("n,want", [
     (8, [(0, 2), (2, 4), (4, 6), (6, 8)]),
     (4, [(0, 1), (1, 2), (2, 3), (3, 4)]),
-    (5, [(0, 5)]),
-    (3, [(0, 3)]),
+    (5, [(0, 2), (2, 3), (3, 4), (4, 5)]),
+    (3, [(0, 1), (1, 2), (2, 3)]),
     (0, [(0, 0)]),
 ])
-def test_data_sharding_splits_only_what_divides(n, want):
+def test_data_sharding_splits_within_one_row(n, want):
     got = data_sharding(n, FOUR)
     assert [(s.start, s.stop) for _, s in got] == want
     assert all(d == CPU for d, _ in got)
@@ -92,12 +95,25 @@ def test_data_sharding_splits_only_what_divides(n, want):
         == [(0, n)]
 
 
+@pytest.mark.parametrize("n,sizes", [
+    (12, [2, 2, 2, 2, 1, 1, 1, 1]),
+    (76050, [9507, 9507] + [9506] * 6),  # a 100000 × 50000 scan's level 0
+])
+def test_data_sharding_on_eight_entries(n, sizes):
+    mesh = tuple(torch.device("cpu", i) for i in range(8))
+    got = data_sharding(n, mesh)
+    assert [d for d, _ in got] == list(mesh)  # mesh order
+    assert [s.stop - s.start for _, s in got] == sizes
+    assert [s.start for _, s in got] == [0] + [s.stop for _, s in got][:-1]
+    assert got[-1][1].stop == n
+
+
 # --------------------------------------------------------------------------
 # the kernels under a four-entry mesh
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("n", [8, 5, 1, 0])
+@pytest.mark.parametrize("n", [8, 5, 1, 0, 3, 12])
 def test_split_kernels_equal_the_whole_call(n):
-    tiles = _tiles(8)[:n]
+    tiles = _tiles(12)[:n]
     with use_mesh(("cpu",)):
         coef1 = jpeg_transform(tiles)
         rgb1 = jpeg_inverse(coef1)
@@ -113,7 +129,7 @@ def test_split_kernels_equal_the_whole_call(n):
 
 def test_each_shard_is_computed_on_its_rows(monkeypatch):
     """A batch of 8 on four entries: four calls of 2 tiles each, in
-    order; a batch of 5: one call of 5."""
+    order; a batch of 5: calls of 2, 1, 1 and 1, in order."""
     calls = []
     plain = ref.jpeg_transform_ref
 
@@ -129,7 +145,32 @@ def test_each_shard_is_computed_on_its_rows(monkeypatch):
         assert torch.equal(torch.cat(calls), tiles)
         calls.clear()
         jpeg_transform(tiles[:5])
-    assert [c.shape[0] for c in calls] == [5]
+    assert [c.shape[0] for c in calls] == [2, 1, 1, 1]
+    assert torch.equal(torch.cat(calls), tiles[:5])
+
+
+def _spy_shards(monkeypatch) -> list:
+    """Record ``(name, rows)`` of each plain block-kernel call."""
+    shards = []
+    for name in ("jpeg_transform_ref", "jpeg_inverse_ref"):
+        plain = getattr(ref, name)
+
+        def spy(x, *a, _plain=plain, _name=name):
+            shards.append((_name, x.shape[0]))
+            return _plain(x, *a)
+        monkeypatch.setattr(ref, name, spy)
+    return shards
+
+
+def test_an_empty_shard_runs_nothing(monkeypatch):
+    """3 tiles on four entries: three shards of one, each run once; the
+    fourth entry's shard is empty and runs nothing, in either kernel."""
+    shards = _spy_shards(monkeypatch)
+    tiles = _tiles(3, seed=2)
+    with use_mesh(FOUR):
+        jpeg_inverse(jpeg_transform(tiles))
+    assert shards == [("jpeg_transform_ref", 1)] * 3 \
+        + [("jpeg_inverse_ref", 1)] * 3
 
 
 def test_a_cuda_mesh_over_a_cpu_tensor_raises():
@@ -163,10 +204,12 @@ def _digests(tar: bytes, derived, keys) -> tuple[str, str]:
             hashlib.sha256(tifs).hexdigest())
 
 
-def _port_circle(psv: bytes, mesh) -> tuple[str, str]:
+def _port_circle(psv: bytes, mesh, levels: int = 2,
+                 min_level_size: int = 256) -> tuple[str, str]:
     tar = convert_wsi_to_dicom(
         psv, {"slide_id": "mesh"},
-        ConvertOptions(manifest={"uids": UIDS}, device="cpu", mesh=mesh))
+        ConvertOptions(manifest={"uids": UIDS}, device="cpu", mesh=mesh,
+                       min_level_size=min_level_size))
     sched = SimScheduler()
     store = ObjectStore(sched)
     svc = DicomStoreService(store.bucket("dicom"), sched)
@@ -175,11 +218,11 @@ def _port_circle(psv: bytes, mesh) -> tuple[str, str]:
     exporter = ExportService(svc, store.bucket("derived"), device="cpu",
                              mesh=mesh)
     keys = exporter.export_study(study)
-    assert len(keys) == 2
+    assert len(keys) == levels
     return _digests(tar, exporter.derived, keys)
 
 
-def _repro_circle(psv: bytes) -> tuple[str, str]:
+def _repro_circle(psv: bytes, min_level_size: int = 256) -> tuple[str, str]:
     """``repro``'s single-device circle (tests/test_mesh_sharding.py's
     ``_single_device_circle``, at this slide's tiles)."""
     from repro.core import SimScheduler as RSched
@@ -190,7 +233,8 @@ def _repro_circle(psv: bytes) -> tuple[str, str]:
     from repro.wsi.store_service import DicomStoreService as RService
 
     tar = rconvert(psv, {"slide_id": "mesh"},
-                   options=ROpts(manifest={"uids": UIDS}))
+                   options=ROpts(manifest={"uids": UIDS},
+                                 min_level_size=min_level_size))
     sched = RSched()
     store = RStore(sched)
     svc = RService(store.bucket("dicom"), sched)
@@ -204,14 +248,7 @@ def _repro_circle(psv: bytes) -> tuple[str, str]:
 def test_circle_under_a_four_entry_mesh_equals_one_entry_and_repro(
         monkeypatch):
     psv = SyntheticScanner(seed=11).scan(512, 512, TILE)
-    shards = []
-    for name in ("jpeg_transform_ref", "jpeg_inverse_ref"):
-        plain = getattr(ref, name)
-
-        def spy(x, *a, _plain=plain, _name=name):
-            shards.append((_name, x.shape[0]))
-            return _plain(x, *a)
-        monkeypatch.setattr(ref, name, spy)
+    shards = _spy_shards(monkeypatch)
     four = _port_circle(psv, FOUR)
     # both levels (64 and 16 frames) split four ways, forward and inverse
     assert shards == [("jpeg_transform_ref", 16)] * 4 \
@@ -224,3 +261,21 @@ def test_circle_under_a_four_entry_mesh_equals_one_entry_and_repro(
     assert four == one
     assert _port_circle(psv, None) == one  # the ambient mesh: the CPU
     assert four == _repro_circle(psv)
+
+
+def test_ragged_circle_under_a_four_entry_mesh_equals_one_entry_and_repro(
+        monkeypatch):
+    """A 448² slide with levels down to one tile: 49, 9 and 1 tiles, none
+    of which four divides, split 13/12/12/12, 3/2/2/2 and 1 (4 + 4 + 1
+    calls a kernel)."""
+    psv = SyntheticScanner(seed=11).scan(448, 448, TILE)
+    shards = _spy_shards(monkeypatch)
+    four = _port_circle(psv, FOUR, levels=3, min_level_size=TILE)
+    for name in ("jpeg_transform_ref", "jpeg_inverse_ref"):
+        assert [n for k, n in shards if k == name] == \
+            [13, 12, 12, 12, 3, 2, 2, 2, 1]
+    shards.clear()
+    one = _port_circle(psv, ("cpu",), levels=3, min_level_size=TILE)
+    assert [n for _, n in shards] == [49, 9, 1] * 2
+    assert four == one
+    assert four == _repro_circle(psv, min_level_size=TILE)

@@ -8,20 +8,21 @@ The port's copy of ``tests/test_wsi_pipeline.py`` and
 ``tests/test_paper_claims.py``, on the CPU (``device="cpu"``). Where the ML
 subscriber decodes, slides use 64-px tiles (the reference: 256), since the
 CPU's plain entropy decode steps once per symbol of the longest tile. The
-Figure 2/3 model comes from ``tests/_torch_spine.py`` (``benchmarks/``
-imports ``repro``), and the warm-instance Figure 2 case runs its
+Figure 2/3 model is the port's ``repro_torch.core.workflows``, and the
+warm-instance Figure 2 case runs its
 ``SimScheduler`` to a stated horizon, since a warm instance never lets the
 heap drain.
 """
 import pytest
 
-from _torch_spine import (autoscaling_time, fig3_run,  # noqa: F401
-                          parallel_time, pinned_convert, port_lockdep_armed,
-                          port_racedep_armed, serial_time)
+from _torch_spine import (pinned_convert, port_lockdep_armed,  # noqa: F401
+                          port_racedep_armed)
 from repro_torch.core import ConversionPipeline, RealScheduler, SimScheduler
 from repro_torch.core import clock
 from repro_torch.core.clock import wall_sleep
 from repro_torch.core.pipeline import derive_out_key
+from repro_torch.core.workflows import (autoscaling_time, fig3_run,
+                                        parallel_time, serial_time)
 from repro_torch.wsi import (ConvertOptions, SyntheticScanner,
                              convert_wsi_to_dicom, read_part10, sniff,
                              study_levels)
