@@ -268,11 +268,14 @@ raises (exit code ≠ 0) on any failed check:
     step also as a CUDA graph replay (the engine's step, CUDA events,
     median of 5), its share of the same bound at most ``ROOF_SHARE_MAX``
     (the counts stay the eager run's: the counter cannot see inside a
-    replay). Then the
+    replay). Then, side by side, each in a subprocess, the
     ``phi4-mini-3.8b`` ``decode_32k`` cell on the 256-GPU production mesh
-    (a fake process group) in a subprocess: ok, its collectives counted.
-    Prints each cell's counts, terms, time, share, model FLOP share and
-    peak memory;
+    (a fake process group): ok, its collectives counted; and
+    ``ROOF_MULTI_CELL`` on the 512-GPU (pod, data, model) mesh within
+    ``ROOF_MULTI_TIMEOUT`` s: ok on 512 chips, collectives counted by kind,
+    no op on a ``_StridedShard`` layout, its record printed on a line of
+    its own. Prints each cell's counts, terms, time, share, model FLOP
+    share and peak memory;
 15. the data mesh — the split mesh is every visible card, or on a machine
     of one card that card named twice (its two shards run one after the
     other on it: the split, the shard views at an offset, the per-shard
@@ -318,6 +321,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3597,6 +3601,14 @@ ROOF_MEM_BOUND = 0.10
 ROOF_WKV_PER_PREFILL = 32
 # one production cell, counted on meta tensors in a process of its own
 ROOF_PRODUCTION_CELL = ("phi4-mini-3.8b", "decode_32k", "single")
+# and one on the 512-GPU (pod, data, model) mesh: of the multi cells that
+# timed out before the model code kept _StridedShard layouts out, the
+# cheapest that torch 2.11's DTensor also lowers (its embedding gather
+# fails with the batch over two mesh axes, as in every multi decode;
+# PERF.md §6)
+ROOF_MULTI_CELL = ("gemma-2b", "prefill_32k", "multi")
+ROOF_MULTI_CHIPS = 512
+ROOF_MULTI_TIMEOUT = 240
 
 
 def _op_diff(a: dict, b: dict) -> dict:
@@ -3620,9 +3632,11 @@ def run_roofline(seed: int, card: str) -> dict:
     prefill and none a decode step. The decode step is also timed as the
     engine runs it, a CUDA graph replay (``graph_step_ms``, its share of
     the same bound, at most ROOF_SHARE_MAX; no launch counted inside the
-    capture). Then ROOF_PRODUCTION_CELL through
-    ``python -m repro_torch.launch.dryrun --one`` in a subprocess:
-    ``ok`` with its collectives counted."""
+    capture). Then ROOF_PRODUCTION_CELL and ROOF_MULTI_CELL, side by
+    side, each through ``python -m repro_torch.launch.dryrun --one`` in a
+    subprocess: ``ok`` with its collectives counted; the multi cell within
+    ROOF_MULTI_TIMEOUT s, on ROOF_MULTI_CHIPS chips, its collectives by
+    kind, no op on a ``_StridedShard`` layout, its record printed."""
     import torch
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.kernels import ops
@@ -3711,25 +3725,56 @@ def run_roofline(seed: int, card: str) -> dict:
 
     t = time.perf_counter()
     out_dir = ROOT / "artifacts" / "dryrun_torch"
-    arch, shp, mesh = ROOF_PRODUCTION_CELL
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--one", arch,
-         shp, mesh, "--dir", str(out_dir)], capture_output=True, text=True,
-        timeout=300, env={**__import__("os").environ,
-                          "PYTHONPATH": str(ROOT / "src")})
-    rec_path = out_dir / (dryrun.cell_name(arch, shp, mesh) + ".json")
-    rec = json.loads(rec_path.read_text()) if rec_path.exists() else {}
-    if r.returncode or not rec.get("ok") or not rec["collectives"]["total"]:
-        raise AssertionError(f"phase 14: the {arch} {shp} {mesh} cell: exit "
-                             f"{r.returncode}, {rec.get('error')}; "
-                             f"{r.stderr[-1500:]}")
-    production = {k: rec[k] for k in (
-        "arch", "shape", "mesh", "chips", "weight_policy",
-        "flops_per_device", "bytes_per_device", "collectives", "memory",
-        "hbm_per_device", "fits_hbm", "dominant", "bound_s", "lower_s")}
-    production["subprocess_s"] = time.perf_counter() - t
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
+    cells_run = (ROOF_PRODUCTION_CELL, ROOF_MULTI_CELL)
+    recs = []
+    with contextlib.ExitStack() as stack:
+        # each cell's warnings to a file of its own: a full pipe would
+        # stall it
+        errs = [stack.enter_context(tempfile.TemporaryFile("w+"))
+                for _ in cells_run]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--one",
+             *cell, "--dir", str(out_dir)], stdout=subprocess.DEVNULL,
+            stderr=err, text=True, env=env)
+            for cell, err in zip(cells_run, errs)]
+        for (arch, shp, mesh), proc, err, limit in zip(
+                cells_run, procs, errs, (300, ROOF_MULTI_TIMEOUT)):
+            try:
+                proc.wait(timeout=max(1.0, limit - (
+                    time.perf_counter() - t)))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                    q.wait()
+                raise AssertionError(f"phase 14: the {arch} {shp} {mesh} "
+                                     f"cell took over {limit} s")
+            err.seek(0)
+            rec_path = out_dir / (dryrun.cell_name(arch, shp, mesh)
+                                  + ".json")
+            rec = json.loads(rec_path.read_text()) if rec_path.exists() \
+                else {}
+            if proc.returncode or not rec.get("ok") or \
+                    not rec["collectives"]["total"]:
+                raise AssertionError(
+                    f"phase 14: the {arch} {shp} {mesh} cell: exit "
+                    f"{proc.returncode}, {rec.get('error')}; "
+                    f"{err.read()[-1500:]}")
+            recs.append({k: rec[k] for k in (
+                "arch", "shape", "mesh", "chips", "weight_policy",
+                "flops_per_device", "bytes_per_device", "collectives",
+                "strided_ops", "memory", "hbm_per_device", "fits_hbm",
+                "dominant", "bound_s", "lower_s")})
+            recs[-1]["subprocess_s"] = time.perf_counter() - t
+    production, multi = recs
+    by_kind = multi["collectives"]["by_kind"]
+    if multi["chips"] != ROOF_MULTI_CHIPS or not by_kind or \
+            not all(v > 0 for v in by_kind.values()) or multi["strided_ops"]:
+        raise AssertionError(f"phase 14: the multi cell: {multi}")
+    _log("phase 14 multi cell: " + json.dumps(multi))
     return dict(card=card, arch=ROOF_ARCH, cells=cells,
-                production=production, phase_s=time.perf_counter() - t0)
+                production=production, multi=multi,
+                phase_s=time.perf_counter() - t0)
 
 
 # phase 15: the data mesh (level batches split over the visible cards);

@@ -24,6 +24,17 @@ per batch row and head) run on the local shards
 masks, zero states) count as replicated (``implicit_replication``). A cell
 that fails records ``ok: false`` and its error, never made-up numbers.
 
+Both production meshes lower, the (2, 32, 8) multi-pod one included. What
+kept the three-axis mesh from lowering (every multi prefill and train
+cell ran past 300 s) was the ``_StridedShard``: a view that merges a
+sharded dim with a later sharded dim (an einsum's flattening of the batch
+with a sequence over 'model', or with the heads) makes one, and every op
+that takes it plans each candidate redistribution by DTensor's graph
+search, whose states grow with the mesh's dims. The model code keeps such
+layouts out (``sharding.seq_whole`` before a projection, the attention,
+mamba2's chunked scan and rwkv6's loras on the local shards); the record's
+``strided_ops`` counts the ops that took one, 0 in every cell.
+
 One JSON record per cell lands in ``artifacts/dryrun_torch``, with the
 counter's op table gzipped beside it (``<cell>.ops.json.gz``, the input of
 ``launch.reanalyze``); ``--all`` runs every cell in its own subprocess
@@ -337,6 +348,7 @@ def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
         f32_flops_per_device=res["flops_f32"],
         collectives={"total": res["collective_bytes"],
                      "by_kind": res["by_kind"]},
+        strided_ops=res["strided_ops"],
         memory=mem, hbm_per_device=arg_b + res["temp_bytes"],
         fits_hbm=bool(arg_b + res["temp_bytes"] < HW().hbm_bytes),
         **analytic, **terms, lower_s=lower_s)

@@ -16,6 +16,7 @@ K/V set, scaled by ``tanh(gate)`` where the block has a gate).
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -106,18 +107,49 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     accumulator in float32; a key count that is not a multiple of the
     chunk is padded with keys at position ``UNWRITTEN`` (masked out).
     With ``H > KV`` (GQA, MQA) the queries are grouped as (KV, G) and the
-    keys are not broadcast: the reference's path on one device. Under a
-    mesh whose ``model`` axis divides H, the keys are broadcast to all H
-    heads so that the heads can be sharded over it (the reference's
-    ``expand_kv``).
+    keys are not broadcast: the reference's path on one device.
+
+    Under a mesh the attention runs on the local shards
+    (``sharding.local_call``): its math is local to a batch row and a
+    head. DTensor would run its einsums on views that merge the sharded
+    batch dim with the sharded heads into one ``_StridedShard`` dim, and
+    plan each candidate layout of those einsums by its graph search (the
+    sharding module doc). q keeps the policy's layout (heads on ``model``
+    or, where the heads do not divide it, the queries); k and v take whole
+    sequences with their KV heads sharded as q's where they divide
+    ``model``, else whole, each local head then reading its KV head by
+    index (the reference's ``expand_kv``).
     """
+    fn = partial(_blocked, causal=causal, window=window, chunk=chunk)
+    mesh = shd.current_mesh()
+    if mesh is None:
+        return fn(q, k, v, q_pos, kv_pos)
+    H, KV = q.shape[2], k.shape[2]
+    q_spec = shd.spec_for(q.shape, _Q, mesh) + (None,) * 4
+    kv_spec = shd.spec_for(k.shape, _KV, mesh) + (None,) * 4
+    pos = ("batch", "seq" if q_spec[1] else "")
+    args, axes = (q, k, v, q_pos, kv_pos), (_Q, _KV, _KV, pos, ("batch", ""))
+    if q_spec[2] and not kv_spec[2] and H > KV:
+        args += (torch.arange(H, device=q.device) // (H // KV),)
+        axes += (("heads",),)
+    out, = shd.local_call(lambda *a: (fn(*a),), args, axes, (_Q,))
+    return out
+
+
+# blocked attention's logical axes on the local shards
+_Q = ("batch", "seq", "heads", "")
+_KV = ("batch", "", "heads", "")
+
+
+def _blocked(q, k, v, q_pos, kv_pos, kv_head=None, *, causal: bool,
+             window: int, chunk: int):
+    """:func:`blocked_attention` on whole tensors or on one shard of
+    them; ``kv_head`` (H,) gives each query head its KV head (the keys
+    are then read per query head, not grouped)."""
     B, Sq, H, D = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    G = H // KV
+    G = 1 if kv_head is not None else H // KV
     scale = D**-0.5
-    mesh = shd.current_mesh()
-    tp = shd.axis_sizes(mesh).get("model", 1) if mesh is not None else 1
-    expand_kv = G > 1 and tp > 1 and H % tp == 0
     chunk = min(chunk, Skv)
     if Skv % chunk:  # pad KV to a chunk multiple with masked-out slots
         pad = chunk - Skv % chunk
@@ -134,13 +166,11 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     for j in range(n_chunks):
         sl = slice(j * chunk, (j + 1) * chunk)
         kj, vj, pj = k[:, sl].float(), v[:, sl].float(), kv_pos[:, sl]
-        if expand_kv:  # broadcast grouped KV to all H heads
-            kj = kj.repeat_interleave(G, dim=2)
-            vj = vj.repeat_interleave(G, dim=2)
-            kj = shd.constrain(kj, "batch", "", "heads", "")
-        if expand_kv or G == 1:
+        if kv_head is not None:  # each query head's KV head
+            kj = kj.index_select(2, kv_head)
+            vj = vj.index_select(2, kv_head)
+        if G == 1:
             s = torch.einsum("bqhd,bchd->bhqc", q32, kj) * scale
-            s = shd.constrain(s, "batch", "heads", "seq", "")
         else:  # grouped path: no KV broadcast
             qg = q32.reshape(B, Sq, KV, G, D)
             s = torch.einsum("bqkgd,bckd->bkgqc", qg, kj) * scale
@@ -157,7 +187,7 @@ def blocked_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
         p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        if expand_kv or G == 1:
+        if G == 1:
             pv = torch.einsum("bhqc,bchd->bqhd", p, vj)
         else:
             pg = p.reshape(B, KV, G, Sq, -1)
@@ -186,7 +216,7 @@ def attn_defs(cfg, *, cross: bool = False) -> dict:
 
 
 def attn_project_q(p, cfg, x, positions, *, rope: bool = True):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = torch.einsum("bsd,dhk->bshk", shd.seq_whole(x), p["wq"].to(x.dtype))
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     # TP over heads when divisible; context-parallel fallback over seq otherwise
@@ -196,6 +226,7 @@ def attn_project_q(p, cfg, x, positions, *, rope: bool = True):
 
 
 def attn_project_kv(p, cfg, x, positions, *, rope: bool = True):
+    x = shd.seq_whole(x)
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
     if rope:
@@ -355,6 +386,7 @@ def _gelu(x):
 
 def mlp_apply(p, cfg, x):
     dt = x.dtype
+    x = shd.seq_whole(x)
     if cfg.mlp_type in ("swiglu", "geglu"):
         g = torch.einsum("bsd,df->bsf", x, p["wg"].to(dt))
         u = torch.einsum("bsd,df->bsf", x, p["wu"].to(dt))
@@ -393,7 +425,7 @@ def embed_apply(p, cfg, tokens):
 
 def logits_apply(p, cfg, x):
     table = p.get("head", p["table"]).to(x.dtype)
-    logits = torch.einsum("bsd,vd->bsv", x, table)
+    logits = torch.einsum("bsd,vd->bsv", shd.seq_whole(x), table)
     return shd.constrain(logits, "batch", "seq", "vocab")
 
 

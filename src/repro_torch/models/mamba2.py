@@ -66,7 +66,8 @@ def _causal_conv(x, w):
 
 def _project(p, cfg, x):
     dt_ = x.dtype
-    z = torch.einsum("bsd,de->bse", x, p["wz"].to(dt_))
+    # the gate's gradient laid out as z (the features over 'model')
+    z = shd.grad_as_is(torch.einsum("bsd,de->bse", x, p["wz"].to(dt_)))
     xs = torch.einsum("bsd,de->bse", x, p["wx"].to(dt_))
     Bp = torch.einsum("bsd,dn->bsn", x, p["wB"].to(dt_))
     Cp = torch.einsum("bsd,dn->bsn", x, p["wC"].to(dt_))
@@ -78,7 +79,7 @@ def mamba2_apply(p, cfg, x, *, chunk: int = 64, return_state: bool = False):
     """Full-sequence SSD. x: (B, S, D) -> (out, final_state | None)."""
     B, S, D = x.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    z, xr, Br, Cr, dt = _project(p, cfg, x)
+    z, xr, Br, Cr, dt = _project(p, cfg, shd.seq_whole(x))
     xs = F.silu(_causal_conv(xr, p["conv_x"].to(xr.dtype)))
     Bp = F.silu(_causal_conv(Br, p["conv_B"].to(Br.dtype)))
     Cp = F.silu(_causal_conv(Cr, p["conv_C"].to(Cr.dtype)))
@@ -92,11 +93,43 @@ def mamba2_apply(p, cfg, x, *, chunk: int = 64, return_state: bool = False):
     dt = F.softplus(dt.float() + p["dt_bias"].float())
 
     xh = xs.reshape(B, NC, Q, H, P).float()
-    xh = shd.constrain(xh, "batch", "", "", "", "")
     Bc = Bp.reshape(B, NC, Q, N).float()
     Cc = Cp.reshape(B, NC, Q, N).float()
     dtc = dt.reshape(B, NC, Q, H)
-    Lmask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    # per batch row, on the local shards under a mesh, the heads whole
+    # (the reference's layout of xh): DTensor would merge the batch with
+    # the chunks and heads in the chunk einsums (the sharding module doc)
+    y, st = shd.local_call(_ssd, (xh, Bc, Cc, dtc, A), _SSD_IN, _SSD_OUT)
+
+    y = y.reshape(B, S, H, P)
+    y = y + xs.reshape(B, S, H, P).float() * p["D_skip"].float()[
+        None, None, :, None]
+    y = y.reshape(B, S, cfg.d_inner)
+
+    out = _gate_norm_out(p, cfg, y, z)
+    if return_state:
+        return out, {
+            "conv_x": xs_tail(xr, cfg.ssm_conv),
+            "conv_B": xs_tail(Br, cfg.ssm_conv),
+            "conv_C": xs_tail(Cr, cfg.ssm_conv),
+            "ssm": st,
+        }
+    return out, None
+
+
+# the SSD's logical axes on the local shards: per batch row, all heads
+_SSD_IN = (("batch", "", "", "", ""), ("batch", "", "", ""),
+           ("batch", "", "", ""), ("batch", "", "", ""), ("",))
+_SSD_OUT = (("batch", "", "", "", ""), ("batch", "", "", ""))
+
+
+def _ssd(xh, Bc, Cc, dtc, A):
+    """The chunked scan: xh (B, NC, Q, H, P), Bc/Cc (B, NC, Q, N) float32,
+    dtc (B, NC, Q, H), A (H,). Returns (y (B, NC, Q, H, P), the final
+    state (B, H, P, N))."""
+    B, NC, Q, H, P = xh.shape
+    N = Bc.shape[-1]
+    Lmask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
 
     # every chunk's own terms at once: (B, NC, ...)
     cum = torch.cumsum(dtc * A, dim=2)  # (B,NC,Q,H)
@@ -113,7 +146,7 @@ def mamba2_apply(p, cfg, x, *, chunk: int = 64, return_state: bool = False):
     chunk_decay = torch.exp(cum[:, :, -1])[..., None, None]  # (B,NC,H,1,1)
 
     # the carried state walks the chunks in order
-    st = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    st = torch.zeros((B, H, P, N), dtype=torch.float32, device=xh.device)
     states = []
     for c in range(NC):
         states.append(st)
@@ -121,21 +154,7 @@ def mamba2_apply(p, cfg, x, *, chunk: int = 64, return_state: bool = False):
     st_in = torch.stack(states, dim=1)  # (B,NC,H,P,N): each chunk's input
     # inter-chunk term from the carried state
     y = y + torch.einsum("bctn,bcth,bchpn->bcthp", Cc, torch.exp(cum), st_in)
-
-    y = y.reshape(B, S, H, P)
-    y = y + xs.reshape(B, S, H, P).float() * p["D_skip"].float()[
-        None, None, :, None]
-    y = y.reshape(B, S, cfg.d_inner)
-
-    out = _gate_norm_out(p, cfg, y, z)
-    if return_state:
-        return out, {
-            "conv_x": xs_tail(xr, cfg.ssm_conv),
-            "conv_B": xs_tail(Br, cfg.ssm_conv),
-            "conv_C": xs_tail(Cr, cfg.ssm_conv),
-            "ssm": st,
-        }
-    return out, None
+    return y, st
 
 
 def xs_tail(x, width):
@@ -181,6 +200,10 @@ def mamba2_decode(p, cfg, x1, state):
     xh = cx.reshape(B, H, P).float()
     ssm = state["ssm"] * dA[..., None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dts, xh, cB.float())
+    # the state in its own layout (heads over 'model'): DTensor may lay
+    # the head dim over an axis the batch leaves free, and the einsum
+    # below then merges it with the heads, a _StridedShard
+    ssm = shd.constrain(ssm, "batch", "tp", "", "")
     y = torch.einsum("bhpn,bn->bhp", ssm, cC.float())
     y = y + xh * p["D_skip"].float()[None, :, None]
     y = y.reshape(B, 1, cfg.d_inner)

@@ -72,6 +72,7 @@ def _dispatch(x, slot, E: int, C: int, K: int):
 
 def _moe_apply(p, cfg, x):
     B, S, D = x.shape
+    x = shd.seq_whole(x)
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     # Python's round, half to even, as the reference computes C
     C = max(1, int(round(cfg.capacity_factor * S * K / E)))

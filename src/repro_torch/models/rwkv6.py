@@ -48,6 +48,9 @@ _WKV_IN = (_BSHK, _BSHK, _BSHK, _BSHK, ("heads", ""), _STATE)
 _WKV_OUT = (_BSHK, _STATE)
 _DEC_X = ("batch", "heads", "")
 _DEC_IN = (_DEC_X, _DEC_X, _DEC_X, _DEC_X, ("heads", ""), _STATE)
+# the token-shift and decay loras': per token, whole weights
+_LORA_IN = (("batch", "", ""), ("", ""), ("", "", ""))
+_DECAY_IN = (("batch", "", ""), ("",), ("", ""), ("", ""))
 
 
 # --------------------------------------------------------------------------
@@ -128,24 +131,39 @@ def wkv_decode(r1, k1, v1, logw1, u, state):
 # --------------------------------------------------------------------------
 def _ddlerp(p, x, xprev):
     """Finch data-dependent token-shift. Returns the 5 mixed inputs."""
-    B, S, D = x.shape
     dt = x.dtype
     xx = xprev - x
     xxx = x + xx * p["mu_x"].to(dt)
-    lora = torch.tanh(torch.einsum("bsd,dr->bsr", xxx, p["tm_w1"].to(dt)))
-    # the port's own: DTensor cannot split a mesh-sharded last dim in five
-    lora = shd.constrain(lora, "batch", "seq", "")
-    lora = lora.reshape(B, S, N_MIX, -1)
-    deltas = torch.einsum("bsmr,mrd->bsmd", lora, p["tm_w2"].to(dt))
+    # per token, on the local shards under a mesh: DTensor would contract
+    # the lora's rank over 'model' and hand the mixes on as partial sums,
+    # each projection then run whole on every rank
+    deltas, = shd.local_call(_lora_deltas, (xxx, p["tm_w1"], p["tm_w2"]),
+                             _LORA_IN, (("batch", "", "", ""),))
     mixed = x[:, :, None] + xx[:, :, None] * (p["mu5"].to(dt)[None, None]
                                               + deltas)
     return [mixed[:, :, i] for i in range(N_MIX)]
 
 
+def _lora_deltas(xxx, w1, w2):
+    B, S, _ = xxx.shape
+    dt = xxx.dtype
+    lora = torch.tanh(torch.einsum("bsd,dr->bsr", xxx, w1.to(dt)))
+    lora = lora.reshape(B, S, N_MIX, -1)
+    return (torch.einsum("bsmr,mrd->bsmd", lora, w2.to(dt)),)
+
+
 def _decay(p, xw):
-    ww = f32(p["w0"]) + torch.einsum(
-        "bsd,dr->bsr", f32(xw), f32(p["td_w1"])) @ f32(p["td_w2"])
-    return -torch.exp(torch.clamp(ww, -20.0, 20.0))  # log w  (strictly < 0)
+    # per token, on the local shards under a mesh: DTensor would lay the
+    # product's rows out over 'model' and merge them back with the batch
+    # in the backward (the sharding module doc)
+    ww, = shd.local_call(_decay_rows, (xw, p["w0"], p["td_w1"], p["td_w2"]),
+                         _DECAY_IN, (_DECAY_IN[0],))
+    return ww
+
+
+def _decay_rows(xw, w0, w1, w2):
+    ww = f32(w0) + torch.einsum("bsd,dr->bsr", f32(xw), f32(w1)) @ f32(w2)
+    return (-torch.exp(torch.clamp(ww, -20.0, 20.0)),)  # log w (< 0)
 
 
 def _head_norm(p, cfg, y):
@@ -221,11 +239,11 @@ def rwkv_block(p, cfg, x, state=None, *, impl: str = "auto"):
         wkv0 = state["wkv"]
         sh_tm = state["shift_tm"].to(x.dtype)
         sh_cm = state["shift_cm"].to(x.dtype)
-    h = rms_norm(x, p["norm_tm"], cfg.norm_eps)
+    h = shd.seq_whole(rms_norm(x, p["norm_tm"], cfg.norm_eps))
     tm_out, wkv = _time_mix(p, cfg, h, _shifted(h, sh_tm), wkv0,
                             decode=False, impl=impl)
     x = x + tm_out
-    h2 = rms_norm(x, p["norm_cm"], cfg.norm_eps)
+    h2 = shd.seq_whole(rms_norm(x, p["norm_cm"], cfg.norm_eps))
     x = x + _channel_mix(p, cfg, h2, _shifted(h2, sh_cm))
     return x, {"wkv": wkv, "shift_tm": h[:, -1], "shift_cm": h2[:, -1]}
 

@@ -24,7 +24,10 @@ propagates shapes):
   reference's ring accounting (:func:`collective_traffic`), the group
   size read from its process group;
 * a per-op table (op name → calls, FLOPs, bytes, float32-rate FLOPs)
-  and the peak of the live storage the step allocates (``temp_bytes``).
+  and the peak of the live storage the step allocates (``temp_bytes``);
+* **strided_ops** — the DTensor ops that took an input laid out with a
+  ``_StridedShard``, whose redistributions DTensor plans by its graph
+  search (``sharding``'s module doc): 0 on the port's steps.
 
 A ported kernel counts its formula once per call (``roofline.work``), and
 none of the aten ops inside its wrapper, so the card (the kernel) and a
@@ -43,6 +46,7 @@ from collections import defaultdict
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.placement_types import _StridedShard
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -142,6 +146,7 @@ class Counter(TorchDispatchMode):
         self.peak = 0
         self._hidden = 0
         self._seen: set[int] = set()
+        self.strided_ops = 0
 
     # -- recording ---------------------------------------------------------
     def _row(self, name: str, flops: float, nbytes: float,
@@ -193,6 +198,9 @@ class Counter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
+            self.strided_ops += any(
+                isinstance(q, _StridedShard) for t in _tensors((args, kwargs))
+                if isinstance(t, DTensor) for q in t.placements)
             return NotImplemented  # DTensor runs it on the local shards
         if any(issubclass(t, FakeTensor) for t in types):
             # DTensor's sharding propagation runs each op once on fake
@@ -245,6 +253,7 @@ class Counter(TorchDispatchMode):
                 "bytes": self.bytes,
                 "collective_bytes": self.collective_bytes,
                 "by_kind": dict(self.by_kind), "temp_bytes": self.peak,
+                "strided_ops": self.strided_ops,
                 "ops": {k: list(v) for k, v in sorted(self.ops.items())}}
 
 

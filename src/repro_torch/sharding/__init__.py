@@ -21,6 +21,17 @@ shard it (the reference's ``PartitionSpec`` entries, as a tuple);
 ``Replicate()``; a dim sharded over ``('pod', 'data')`` is split over pod
 first, as the reference's spec splits it). ``torch.distributed.tensor`` is
 imported only where a mesh is in use.
+
+No op of a step may take a ``_StridedShard``: DTensor makes one where a
+view merges a sharded dim with a later dim that is sharded too (the
+batch with the heads in an attention einsum, the batch with a sequence
+sharded over ``model`` in a projection ``bsd,de->bse``), and it then
+plans every redistribution of the ops that take it, one for each
+candidate layout of each input, by its graph search, whose states grow
+with the mesh's dims: on the three-axis multi-pod mesh one projection
+took minutes to plan. The model code keeps such merges out:
+:func:`seq_whole` before a projection, :func:`local_call` for math that
+is local to a batch row and a head.
 """
 from __future__ import annotations
 
@@ -40,10 +51,12 @@ __all__ = [
     "set_mesh",
     "current_mesh",
     "constrain",
+    "seq_whole",
     "batch_axes",
     "axis_sizes",
     "local_call",
     "dense",
+    "grad_as_is",
     "index_write",
     "placed",
     "shard_box",
@@ -199,6 +212,15 @@ def constrain(x, *logical: str):
     return x.redistribute(x.device_mesh, want)
 
 
+def seq_whole(x, feature: str = "embed"):
+    """``x`` (batch, seq, ``feature``) in the policy's layout for
+    ``("batch", "", feature)``: the sequence whole. An einsum that merges
+    the batch and seq dims (a projection ``bsd,de->bse``) takes it so:
+    the merge of a batch dim with a sequence sharded over ``model`` is a
+    ``_StridedShard`` (module doc)."""
+    return constrain(x, "batch", "", feature)
+
+
 def local_call(fn, args, in_axes, out_axes):
     """``fn(*args)`` where its math is local to a shard (the wkv per batch
     row and head): under a mesh, with a DTensor among ``args``, each
@@ -206,11 +228,14 @@ def local_call(fn, args, in_axes, out_axes):
     (``in_axes``, one tuple per argument; a plain tensor is taken as
     replicated) and ``fn`` runs on the local shards by ``local_map``; its
     outputs are DTensors placed by ``out_axes``, each logical name on the
-    mesh axes it took in the inputs. Otherwise ``fn(*args)``."""
+    mesh axes it took in the inputs. An argument replicated over a mesh
+    axis that another argument shards feeds a different shard of the work
+    on each rank there: its gradient is a partial sum over that axis.
+    Otherwise ``fn(*args)``."""
     mesh = current_mesh()
     if mesh is None:
         return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     dts = [a for a in args if isinstance(a, DTensor)]
@@ -231,12 +256,16 @@ def local_call(fn, args, in_axes, out_axes):
         ins.append(a if tuple(a.placements) == want
                    else a.redistribute(dmesh, want))
         in_pl.append(want)
+    names = _axis_names(dmesh)
     out_pl = tuple(
         tuple(Shard(axes.index(owner[a])) if owner.get(a) in axes
-              else Replicate() for a in _axis_names(dmesh))
+              else Replicate() for a in names)
         for axes in out_axes)
+    grad_pl = tuple(
+        tuple(Partial() if a in owner and not q.is_shard() else q
+              for a, q in zip(names, pl)) for pl in in_pl)
     return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
-                     device_mesh=dmesh)(*ins)
+                     in_grad_placements=grad_pl, device_mesh=dmesh)(*ins)
 
 
 def dense(x):
@@ -252,6 +281,22 @@ def dense(x):
     x = x.contiguous()
     if x.requires_grad:
         x.register_hook(lambda g: g.contiguous())
+    return x
+
+
+def grad_as_is(x):
+    """Under a mesh, a DTensor ``x`` whose gradient is laid out as ``x``
+    before it flows back into the op that made ``x``; otherwise ``x``
+    itself. DTensor's backward may lay a gradient out otherwise (the
+    sequence over 'model' where the forward had the features), and the
+    einsum that made ``x`` then merges it with the batch: a
+    ``_StridedShard`` (module doc)."""
+    if current_mesh() is None or not hasattr(x, "to_local"):
+        return x
+    pl = tuple(x.placements)
+    if x.requires_grad:
+        x.register_hook(lambda g: g if tuple(g.placements) == pl
+                        else g.redistribute(g.device_mesh, pl))
     return x
 
 

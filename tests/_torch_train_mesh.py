@@ -19,8 +19,18 @@ to OUT.json. The jobs:
   with ``"fault": "unreduced"`` under a planted fault (:func:`unreduced`);
 - ``dryrun``: ``launch.dryrun.run_cell`` of a local cell on the ranks laid
   out as ``mesh_shape``, under ``CommDebugMode``: the cell's record (its
-  collective bytes and op table's collective rows) and the collectives
-  ``CommDebugMode`` counted.
+  collective bytes, per-device FLOPs and bytes, and op table's collective
+  rows) and the collectives ``CommDebugMode`` counted;
+- ``logits``: a prefill cell's step on the ranks laid out as
+  ``mesh_shape`` (its arguments drawn whole from seed 0 on every rank and
+  laid out by the policy, as ``run_cell`` lays them out), its logits
+  gathered, against the same step run on this rank alone with no mesh:
+  the largest absolute difference and logit; with ``"fault":
+  "misplaced"`` under a planted fault (:func:`misplaced`);
+- ``grads``: ``train.step.loss_and_grads`` of a reduced config on a batch
+  of ``batch`` (rows, seq) drawn from seed 1, on the ranks laid out as
+  ``mesh_shape`` and on this rank alone: each leaf's largest absolute
+  difference over the one process's largest magnitude.
 
 Run as a script: each rank is a process started with the ``spawn``
 method, on one intra-op thread, with the port's lockdep and racedep armed
@@ -91,6 +101,37 @@ def unreduced():
         TokenDataset.shard_batch = shard_batch
         launch._group_device = group_device
         shd.whole = whole
+
+
+@contextmanager
+def misplaced():
+    """A planted fault for the logits bound's power: every output of
+    ``sharding.local_call`` is declared on the wrong mesh axes, its
+    placements on 'data' and 'model' swapped. Each rank's shard is
+    unchanged, and on a mesh whose two axes are of one size so is the
+    global shape: only which rows and heads a rank holds is wrong."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import sharding as shd
+
+    call = shd.local_call
+
+    def swapped(o):
+        if not isinstance(o, DTensor):
+            return o
+        pl = list(o.placements)
+        i, j = (o.device_mesh.mesh_dim_names.index(a)
+                for a in ("data", "model"))
+        pl[i], pl[j] = pl[j], pl[i]
+        return DTensor.from_local(o.to_local(), o.device_mesh, pl,
+                                  run_check=False, shape=o.shape,
+                                  stride=o.stride())
+
+    shd.local_call = lambda *a: tuple(swapped(o) for o in call(*a))
+    try:
+        yield
+    finally:
+        shd.local_call = call
 
 
 def saved_arrays(ckpt: str, step: int) -> dict:
@@ -190,13 +231,71 @@ def _dryrun(job, mesh) -> dict:
         counts[name] = counts.get(name, 0) + n
     return dict(ok=rec["ok"], error=rec.get("error"), chips=rec.get("chips"),
                 collectives=rec.get("collectives"),
+                flops_per_device=rec.get("flops_per_device"),
+                bytes_per_device=rec.get("bytes_per_device"),
                 op_rows={k: v[0] for k, v in rec.get("ops", {}).items()
                          if "c10d" in k},
                 comm_counts=counts)
 
 
+def _logits(job, mesh) -> dict:
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import sharding as shd
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_map
+    cfg, shape = get_config(job["arch"]), ShapeConfig(*job["shape"])
+    grid = make_local_mesh("cpu", *job["mesh_shape"])
+    fn, groups, _ = dryrun._step(cfg, shape, M.param_count(cfg),
+                                 shd.axis_sizes(grid)["model"], None)
+    args = dryrun._real_args(cfg, shape, groups, torch.device("cpu"), None,
+                             0)
+    want = fn(*args)[0]
+    laid = [shd.lay_out_tree(a, tree_map(
+        lambda d, p=p: shd.named_sharding(d.shape, d.logical, grid, p),
+        defs), grid) for a, (defs, p) in zip(args, groups)]
+    fault = misplaced() if job.get("fault") == "misplaced" else nullcontext()
+    with shd.set_mesh(grid), implicit_replication(), fault:
+        got = fn(*laid)[0].full_tensor()
+    return dict(shape=list(got.shape),
+                max_abs=float((got - want).abs().max()),
+                max_logit=float(want.abs().max()))
+
+
+def _grads(job, mesh) -> dict:
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_defs, tree_map
+    from repro_torch.train.step import batch_defs, loss_and_grads
+    cfg, (B, S) = get_config(job["arch"]), job["batch"]
+    grid = make_local_mesh("cpu", *job["mesh_shape"])
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    want = dict(tree_defs(loss_and_grads(params, cfg, batch)[1]))
+    defs = batch_defs(cfg, B, S)
+    laid = shd.lay_out_tree(params, tree_map(
+        lambda d: shd.named_sharding(d.shape, d.logical, grid),
+        M.model_defs(cfg)), grid)
+    lb = {k: shd.lay_out(v, shd.named_sharding(
+        defs[k].shape, defs[k].logical, grid), grid) for k, v in batch.items()}
+    with shd.set_mesh(grid), implicit_replication():
+        got = loss_and_grads(laid, cfg, lb)[1]
+    return {"/".join(p): float((t.full_tensor() - want[p]).abs().max()
+                               / want[p].abs().max())
+            for p, t in tree_defs(got)}
+
+
 JOBS = {"draw": _draw, "restore": _restore, "train": _train,
-        "dryrun": _dryrun}
+        "dryrun": _dryrun, "logits": _logits, "grads": _grads}
 
 
 def _rank(rank: int, n: int, port: int, jobs_path: str, out: str) -> None:

@@ -11,10 +11,12 @@ of 1, 2 and 4 ranks (``tests/_torch_train_mesh.py``, in the pattern of
   runs on parameters updated once: the ranks sum the gradient in another
   order, and a last-bit difference can round a bf16 parameter one step
   apart (tests/_torch_train.py's rule), which moves the loss: within
-  ``STEP_LOSS_REL`` (5e-4; measured 6.9e-5 and 9.8e-5 for rwkv6 at 2
-  ranks, 1.2e-5 at 4, 3.2e-6 and 2.6e-7 for mixtral). The gap then grows
-  with every update (1.7e-3 and 3.0e-3 for rwkv6 three updates on): the
-  test holds two steps.
+  ``STEP_LOSS_REL`` (5e-4; measured 2.4e-6 for rwkv6 at 2 ranks, 2.6e-7
+  for mixtral). Until the wkv's ``u`` took a partial-sum gradient over
+  the batch axes (``sharding.local_call``) its gradient was never summed
+  over the ranks, and rwkv6 read 6.9e-5–9.8e-5 at 2 ranks, 1.2e-5 at 4,
+  its gap growing with every update (1.7e-3 and 3.0e-3 three updates
+  on): the test holds two steps.
 - The bound's power: a planted fault, each rank stepping on its own half
   batch with its gradient never reduced (only the reported loss averaged
   over the ranks), moves the second loss by 3.6e-3 (rwkv6) and 5.3e-3

@@ -21,7 +21,8 @@ resumed steps are compared, relative to ``repro``'s:
 - the second on parameters updated once, each package summing the 2
   devices' gradients in its own order (a last-bit difference can round a
   bf16 parameter one step apart): within ``STEP_LOSS_REL`` (5e-4, the
-  bound of tests/test_torch_train_mesh.py; measured 9.8e-5);
+  bound of tests/test_torch_train_mesh.py; measured 2.1e-6, and 9.8e-5
+  while the wkv's ``u`` gradient was not summed over the ranks);
 - the bound's power: the planted fault (``_torch_train_mesh.unreduced``:
   each rank steps on its own half batch, its gradient never reduced)
   moves the second loss by 3.6e-3 from ``repro``'s, beyond
@@ -29,8 +30,7 @@ resumed steps are compared, relative to ``repro``'s:
   readings.
 
 ``repro``'s 2-device run also holds to the port's one-process run
-(8.8e-8 and 2.7e-7): the 2 ranks' reduction order, not the package,
-makes the second step's gap.
+(8.8e-8 and 2.7e-7).
 """
 import json
 import os
