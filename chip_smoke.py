@@ -270,12 +270,13 @@ raises (exit code ≠ 0) on any failed check:
     (the counts stay the eager run's: the counter cannot see inside a
     replay). Then, side by side, each in a subprocess, the
     ``phi4-mini-3.8b`` ``decode_32k`` cell on the 256-GPU production mesh
-    (a fake process group): ok, its collectives counted; and
-    ``ROOF_MULTI_CELL`` on the 512-GPU (pod, data, model) mesh within
-    ``ROOF_MULTI_TIMEOUT`` s: ok on 512 chips, collectives counted by kind,
-    no op on a ``_StridedShard`` layout, its record printed on a line of
-    its own. Prints each cell's counts, terms, time, share, model FLOP
-    share and peak memory;
+    (a fake process group): ok, its collectives counted, its
+    ``hbm_per_device`` under the card's 80 GB; and ``ROOF_MULTI_CELLS``
+    (a ``gemma-2b`` prefill and decode) on the 512-GPU (pod, data, model)
+    mesh within ``ROOF_MULTI_TIMEOUT`` s: each ok on 512 chips,
+    collectives counted by kind, no op on a ``_StridedShard`` layout,
+    ``fits_hbm``, its record printed on a line of its own. Prints each
+    cell's counts, terms, time, share, model FLOP share and peak memory;
 15. the data mesh — the split mesh is every visible card, or on a machine
     of one card that card named twice (its two shards run one after the
     other on it: the split, the shard views at an offset, the per-shard
@@ -3601,14 +3602,17 @@ ROOF_MEM_BOUND = 0.10
 ROOF_WKV_PER_PREFILL = 32
 # one production cell, counted on meta tensors in a process of its own
 ROOF_PRODUCTION_CELL = ("phi4-mini-3.8b", "decode_32k", "single")
-# and one on the 512-GPU (pod, data, model) mesh: of the multi cells that
+# and two on the 512-GPU (pod, data, model) mesh: of the multi cells that
 # timed out before the model code kept _StridedShard layouts out, the
-# cheapest that torch 2.11's DTensor also lowers (its embedding gather
-# fails with the batch over two mesh axes, as in every multi decode;
-# PERF.md §6)
-ROOF_MULTI_CELL = ("gemma-2b", "prefill_32k", "multi")
+# cheapest prefill, and a decode (its embedding lookup runs on each
+# rank's vocab slice: torch 2.11's DTensor failed the gather with the
+# batch over two mesh axes; PERF.md §6)
+ROOF_MULTI_CELLS = (("gemma-2b", "prefill_32k", "multi"),
+                    ("gemma-2b", "decode_32k", "multi"))
 ROOF_MULTI_CHIPS = 512
 ROOF_MULTI_TIMEOUT = 240
+# the card's memory: a production cell's hbm_per_device must lie under it
+ROOF_HBM_BYTES = 80e9
 
 
 def _op_diff(a: dict, b: dict) -> dict:
@@ -3632,11 +3636,13 @@ def run_roofline(seed: int, card: str) -> dict:
     prefill and none a decode step. The decode step is also timed as the
     engine runs it, a CUDA graph replay (``graph_step_ms``, its share of
     the same bound, at most ROOF_SHARE_MAX; no launch counted inside the
-    capture). Then ROOF_PRODUCTION_CELL and ROOF_MULTI_CELL, side by
+    capture). Then ROOF_PRODUCTION_CELL and ROOF_MULTI_CELLS, side by
     side, each through ``python -m repro_torch.launch.dryrun --one`` in a
-    subprocess: ``ok`` with its collectives counted; the multi cell within
+    subprocess: ``ok`` with its collectives counted and its
+    ``hbm_per_device`` under ROOF_HBM_BYTES; each multi cell within
     ROOF_MULTI_TIMEOUT s, on ROOF_MULTI_CHIPS chips, its collectives by
-    kind, no op on a ``_StridedShard`` layout, its record printed."""
+    kind, no op on a ``_StridedShard`` layout, ``fits_hbm``, its record
+    printed."""
     import torch
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.kernels import ops
@@ -3726,7 +3732,7 @@ def run_roofline(seed: int, card: str) -> dict:
     t = time.perf_counter()
     out_dir = ROOT / "artifacts" / "dryrun_torch"
     env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}
-    cells_run = (ROOF_PRODUCTION_CELL, ROOF_MULTI_CELL)
+    cells_run = (ROOF_PRODUCTION_CELL, *ROOF_MULTI_CELLS)
     recs = []
     with contextlib.ExitStack() as stack:
         # each cell's warnings to a file of its own: a full pipe would
@@ -3739,7 +3745,8 @@ def run_roofline(seed: int, card: str) -> dict:
             stderr=err, text=True, env=env)
             for cell, err in zip(cells_run, errs)]
         for (arch, shp, mesh), proc, err, limit in zip(
-                cells_run, procs, errs, (300, ROOF_MULTI_TIMEOUT)):
+                cells_run, procs, errs,
+                (300,) + (ROOF_MULTI_TIMEOUT,) * len(ROOF_MULTI_CELLS)):
             try:
                 proc.wait(timeout=max(1.0, limit - (
                     time.perf_counter() - t)))
@@ -3755,7 +3762,8 @@ def run_roofline(seed: int, card: str) -> dict:
             rec = json.loads(rec_path.read_text()) if rec_path.exists() \
                 else {}
             if proc.returncode or not rec.get("ok") or \
-                    not rec["collectives"]["total"]:
+                    not rec["collectives"]["total"] or \
+                    not rec["hbm_per_device"] < ROOF_HBM_BYTES:
                 raise AssertionError(
                     f"phase 14: the {arch} {shp} {mesh} cell: exit "
                     f"{proc.returncode}, {rec.get('error')}; "
@@ -3766,14 +3774,16 @@ def run_roofline(seed: int, card: str) -> dict:
                 "strided_ops", "memory", "hbm_per_device", "fits_hbm",
                 "dominant", "bound_s", "lower_s")})
             recs[-1]["subprocess_s"] = time.perf_counter() - t
-    production, multi = recs
-    by_kind = multi["collectives"]["by_kind"]
-    if multi["chips"] != ROOF_MULTI_CHIPS or not by_kind or \
-            not all(v > 0 for v in by_kind.values()) or multi["strided_ops"]:
-        raise AssertionError(f"phase 14: the multi cell: {multi}")
-    _log("phase 14 multi cell: " + json.dumps(multi))
+    production, *multis = recs
+    for multi in multis:
+        by_kind = multi["collectives"]["by_kind"]
+        if multi["chips"] != ROOF_MULTI_CHIPS or not by_kind or \
+                not all(v > 0 for v in by_kind.values()) or \
+                multi["strided_ops"] or not multi["fits_hbm"]:
+            raise AssertionError(f"phase 14: the multi cell: {multi}")
+        _log(f"phase 14 multi {multi['shape']} cell: " + json.dumps(multi))
     return dict(card=card, arch=ROOF_ARCH, cells=cells,
-                production=production, multi=multi,
+                production=production, multi=multis,
                 phase_s=time.perf_counter() - t0)
 
 

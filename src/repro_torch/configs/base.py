@@ -84,6 +84,10 @@ class ModelConfig:
         return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
 
     @property
+    def attn_free(self) -> bool:
+        return self.rwkv
+
+    @property
     def sub_quadratic(self) -> bool:
         """Can this arch decode at 500k context without O(S) full-attn KV scoring?"""
         return self.rwkv or self.family in ("ssm", "hybrid") or self.sliding_window > 0

@@ -13,7 +13,9 @@ group), under ``roofline.counters.Counter``, and records:
   kind),
 * ``memory``: ``argument_bytes`` (the local shards of the step's inputs)
   and ``temp_bytes`` (the peak of the storage the step allocates and
-  holds), ``hbm_per_device`` and ``fits_hbm`` against the card's 80 GB,
+  holds; ``peak_tensors``, the largest storages live there and the ops
+  that made them), ``hbm_per_device`` and ``fits_hbm`` against the
+  card's 80 GB,
 * the three-term roofline on the H100 (``derive_terms``) beside the
   analytic model FLOPs (``_analytic_flops``) and ``lower_s``, the host
   seconds the counted run took.
@@ -164,11 +166,10 @@ def _meta_leaf(d, mesh, policy):
     from repro_torch import sharding as shd
     pl = shd.named_sharding(d.shape, d.logical, mesh, policy)
     local, _ = compute_local_shape_and_global_offset(d.shape, mesh, pl)
-    stride = torch.empty(d.shape, device="meta").stride()
     return DTensor.from_local(torch.empty(local, dtype=d.dtype,
                                           device="meta"),
                               mesh, pl, run_check=False, shape=d.shape,
-                              stride=stride)
+                              stride=shd.contiguous_stride(d.shape))
 
 
 def _real_args(cfg, shape, groups, device, params, seed: int):
@@ -341,7 +342,8 @@ def run_cell(arch, shape, mesh_kind: str, *, device: str = "meta",
         collective_bytes_per_device=res["collective_bytes"], chips=chips,
         model_flops_total=analytic["model_flops"],
         f32_flops_per_device=res["flops_f32"])
-    mem = {"argument_bytes": arg_b, "temp_bytes": res["temp_bytes"]}
+    mem = {"argument_bytes": arg_b, "temp_bytes": res["temp_bytes"],
+           "peak_tensors": res["peak_tensors"]}
     rec.update(
         ok=True, n_params=n_params, n_active=n_active,
         flops_per_device=res["flops"], bytes_per_device=res["bytes"],

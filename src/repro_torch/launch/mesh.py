@@ -10,8 +10,10 @@ tensor-parallel collective across two nodes). The mesh lives on a fake
 process group (``init_process_group("fake", ...)``, world 256 or 512, this
 process rank 0): collectives return tensors of the right shapes and move
 nothing, which is what the dry run needs to count them
-(``launch.dryrun``). A process builds one production mesh: the fake group
-is the process's default group.
+(``launch.dryrun``). The fake group is the process's default group, as
+large as the first mesh built; a later mesh of no more ranks lies on its
+first ranks (the single mesh after the multi-pod one), and counts what it
+counts in a group of its own size.
 
 ``make_local_mesh`` is the training mesh of whatever ranks exist: under an
 initialised process group (``torchrun``; ``gloo`` on the CPU, ``nccl`` on
@@ -37,16 +39,18 @@ PRODUCTION_SHAPES = {
 
 
 def _fake_world(world: int) -> None:
-    """This process as rank 0 of a fake process group of ``world`` ranks."""
+    """This process as rank 0 of a fake process group of at least
+    ``world`` ranks (made of ``world`` where there is none yet)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
-        if dist.get_world_size() != world or dist.get_backend() != "fake":
+        if dist.get_world_size() < world or dist.get_backend() != "fake":
             raise RuntimeError(
                 f"this process already has a {dist.get_backend()!r} group of "
-                f"{dist.get_world_size()} ranks; a production mesh needs a "
-                f"fake group of {world} (run each mesh in its own process)")
+                f"{dist.get_world_size()} ranks; a mesh of {world} needs a "
+                f"fake group of at least {world} (build the largest mesh "
+                "first, or each mesh in its own process)")
         return
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world)
@@ -60,15 +64,17 @@ def make_production_mesh(*, multi_pod: bool = False):
 
 
 def make_fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...]):
-    """A ``DeviceMesh`` of ``shape`` named ``axes`` on a fake process group
-    of as many ranks (the dry run's meshes; tests use small ones)."""
-    from torch.distributed.device_mesh import init_device_mesh
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` on the first ranks of
+    a fake process group (the dry run's meshes; tests use small ones;
+    module doc)."""
+    from torch.distributed.device_mesh import DeviceMesh
 
     n = 1
     for s in shape:
         n *= s
     _fake_world(n)
-    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+    return DeviceMesh("cpu", torch.arange(n).view(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
 
 
 def make_local_mesh(device=None, shape=None, axes=("data",)):

@@ -215,8 +215,34 @@ def attn_defs(cfg, *, cross: bool = False) -> dict:
     return d
 
 
+def _head_einsum(eq: str, x, w, axes):
+    """``torch.einsum(eq, x, w)`` of an attention projection whose weight
+    has a heads dim. Where the heads do not divide the 'model' axis
+    (gemma-2b's one KV head, a reduced config's four heads on eight), the
+    policy splits the weight's head_dim over it, and the einsum, which
+    flattens (heads, head_dim) into one dim, cannot unflatten the product
+    DTensor makes of it; there the einsum runs on the local shards
+    (``sharding.local_call``) with the weight whole, each rank's batch
+    rows (and sequence, for ``wo``), as ``repro``'s partitioner
+    replicates a dim the axis does not divide. ``axes``: the logical axes
+    of ``x``, ``w`` and the product on the local shards."""
+    if not shd.sharded(x, w) or shd.spec_for(w.shape, axes[1],
+                                             shd.current_mesh()):
+        return torch.einsum(eq, x, w)
+    out, = shd.local_call(lambda a, b: (torch.einsum(eq, a, b),), (x, w),
+                          axes[:2], axes[2:])
+    return out
+
+
+# the projections' logical axes on the local shards (:func:`_head_einsum`)
+_W_IN = (("batch", "", ""), ("", "heads", ""), ("batch", "", "heads", ""))
+_W_OUT = (("batch", "seq", "heads", ""), ("heads", "", ""),
+          ("batch", "seq", ""))
+
+
 def attn_project_q(p, cfg, x, positions, *, rope: bool = True):
-    q = torch.einsum("bsd,dhk->bshk", shd.seq_whole(x), p["wq"].to(x.dtype))
+    q = _head_einsum("bsd,dhk->bshk", shd.seq_whole(x),
+                     p["wq"].to(x.dtype), _W_IN)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     # TP over heads when divisible; context-parallel fallback over seq otherwise
@@ -227,15 +253,15 @@ def attn_project_q(p, cfg, x, positions, *, rope: bool = True):
 
 def attn_project_kv(p, cfg, x, positions, *, rope: bool = True):
     x = shd.seq_whole(x)
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = _head_einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype), _W_IN)
+    v = _head_einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype), _W_IN)
     if rope:
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return k, v
 
 
 def attn_out(p, cfg, ctx):
-    out = torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype))
+    out = _head_einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype), _W_OUT)
     return shd.constrain(out, "batch", "seq", "embed")
 
 
@@ -414,40 +440,122 @@ def embed_defs(cfg) -> dict:
 
 
 def embed_apply(p, cfg, tokens):
-    x = p["table"][tokens].to(cfg.dtype)
+    """The scaled rows of ``tokens`` (B, S) in the table. Under a mesh each
+    rank looks its own rows up in its vocab slice (zeros for a token
+    outside it) and the slices' rows are summed over the mesh axes that
+    split the vocab (``sharding.local_call``'s partial outputs): no rule
+    of DTensor's for an indexed read of a sharded table is needed."""
+    table = p["table"]
+    if not shd.sharded(table, tokens):
+        x = _lookup(cfg, table, tokens)
+    else:
+        x, = shd.local_call(
+            lambda t, tok, ids: (_lookup(cfg, t, tok, ids),),
+            (table, tokens, torch.arange(table.shape[0],
+                                         device=tokens.device)),
+            (_VOCAB, ("batch", ""), ("vocab",)), (("batch", "", ""),),
+            partial=("vocab",))
+    return shd.constrain(x, "batch", "seq", "embed")
+
+
+# a vocab table's logical axes on the local shards: the vocab split, each
+# row whole (an FSDP shard of the rows is gathered). The vocab ids,
+# ``arange(V)`` laid out as ("vocab",) beside it, give each rank its
+# slice's ids, the first its offset
+_VOCAB = ("vocab", "")
+
+
+def _in_slice(tokens, ids):
+    """Each token's row in the vocab slice of ids ``ids`` (clamped into
+    it) and whether the token lies in the slice."""
+    local = tokens.long() - ids[0]
+    inside = (local >= 0) & (local < ids.shape[0])
+    return local.clamp(0, ids.shape[0] - 1), inside
+
+
+def _lookup(cfg, table, tokens, ids=None):
+    """``table[tokens]`` in ``cfg.dtype``, scaled by ``sqrt(d_model)``
+    where the config asks; with ``ids`` (the slice's vocab ids) ``table``
+    is a slice of the vocab and a token outside it reads zeros."""
+    if ids is None:
+        x = table[tokens]
+    else:
+        local, inside = _in_slice(tokens, ids)
+        x = torch.where(inside[..., None], table[local], 0)
+    x = x.to(cfg.dtype)
     if cfg.embed_scale:
         # the reference multiplies by a weakly typed Python float, which
         # JAX first rounds to the array's dtype (45.25 for 2048 in bf16);
         # torch would keep it at full precision inside the multiply
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype))
-    return shd.constrain(x, "batch", "seq", "embed")
+    return x
 
 
 def logits_apply(p, cfg, x):
-    table = p.get("head", p["table"]).to(x.dtype)
+    table = shd.gathered(p.get("head", p["table"]), x.shape[0] * x.shape[1],
+                         x.shape[-1], *_VOCAB).to(x.dtype)
     logits = torch.einsum("bsd,vd->bsv", shd.seq_whole(x), table)
     return shd.constrain(logits, "batch", "seq", "vocab")
+
+
+class _VocabNll(torch.autograd.Function):
+    """Each row's ``logsumexp(logits) - logits[label]`` from a slice of
+    the vocab on each rank (Megatron's vocab-parallel cross-entropy): the
+    row max and the sum of exponentials are reduced over the ranks that
+    split the vocab (``reduce``, from ``sharding.local_call``), and the
+    gold logit is gathered where the label falls in the slice and summed
+    over them. The gradient, ``softmax - onehot`` on each slice, needs no
+    collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, ids, reduce):
+        local, inside = _in_slice(labels, ids)
+        m = reduce(logits.amax(-1), "max")
+        s = reduce(torch.exp(logits - m[..., None]).sum(-1), "sum")
+        gold = torch.where(inside, torch.gather(
+            logits, -1, local[..., None])[..., 0], 0.0)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(logits, lse, local, inside)
+        return lse - reduce(gold, "sum")
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse, local, inside = ctx.saved_tensors
+        d = torch.exp(logits - lse[..., None])
+        d.scatter_add_(-1, local[..., None], -inside.to(d.dtype)[..., None])
+        return d * grad[..., None], None, None, None
 
 
 def softmax_xent_chunked(p, cfg, x, labels, mask=None):
     """Cross-entropy over the vocab head, over sequence chunks of
     ``cfg.loss_chunk`` so the (B, S, V) logits are never all held at once
-    (each chunk's logits are recomputed in the backward)."""
+    (each chunk's logits are recomputed in the backward). Under a mesh the
+    chunk's float32 logits stay split over the batch axes and the vocab,
+    each rank's rows and vocab slice, and the loss is the vocab-parallel
+    one (:class:`_VocabNll`)."""
     B, S, D = x.shape
     C = min(cfg.loss_chunk, S)
     if S % C:
         C = S  # fall back for odd smoke shapes
     if mask is None:
         mask = torch.ones((B, S), dtype=x.dtype, device=x.device)
+    V = cfg.vocab_size
+
+    def vocab_nll(logits, li, ids, reduce):
+        return (_VocabNll.apply(logits, li, ids, reduce),)
 
     def chunk_nll(xi, li, mi):
         logits = f32(logits_apply(p, cfg, xi))
-        # the port's own: under a mesh, whole rows of the vocab for the
-        # gather (DTensor's masked gather of a vocab-sharded row fails)
-        logits = shd.constrain(logits, "batch", "seq", "")
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
-        return ((lse - gold) * mi).sum(), mi.sum()
+        if not shd.sharded(logits):
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+            rows = lse - gold
+        else:
+            rows, = shd.local_call(
+                vocab_nll, (logits, li, torch.arange(V, device=logits.device)),
+                (("batch", "", "vocab"), ("batch", ""), ("vocab",)),
+                (("batch", ""),), reduced=("vocab",))
+        return (rows * mi).sum(), mi.sum()
 
     acc = torch.promote_types(x.dtype, torch.float32)
     tot = torch.zeros((), dtype=acc, device=x.device)

@@ -295,8 +295,9 @@ def forward(params, cfg, tokens, *, cond=None, mode: str = "train",
         raise ValueError(f"{cfg.name}: the {fam} family needs cond "
                          "(B, n_cross_tokens, d_model)")
     x = lyr.embed_apply(params["embed"], cfg, tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(
-        B, S)
+    # (1, S): RoPE's angles are the same for every row, so none is made
+    # per row (under a mesh a plain tensor is whole on every rank)
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     parts: dict = {}
     kvs, xkvs, states = [], [], []
@@ -586,7 +587,8 @@ def prefill(params, cfg, tokens, *, cond=None, max_len: int | None = None,
     under a sliding window shorter than the prompt they lie in the rolling
     buffer's order (position p at slot p % W), and with ``+kv8`` the
     self-attention K/V are quantized as decode quantizes them. The cross
-    K/V and the recurrent states are cast to their cache dtypes.
+    K/V and the recurrent states are cast to their cache dtypes; under a
+    mesh every leaf of the cache keeps the policy's placements.
     """
     B, S = tokens.shape
     max_len = max_len or S
@@ -620,10 +622,12 @@ def prefill(params, cfg, tokens, *, cond=None, max_len: int | None = None,
         shd.index_write(cache["kv_pos"], _head(keep)[1:], pos_tail[None])
     for side in ("cross_k", "cross_v"):
         if side in cache:
-            cache[side] = parts[side].to(cache[side].dtype)
+            cache[side] = shd.placed_like(
+                parts[side].to(cache[side].dtype), cache[side])
     for key in ("mamba", "rwkv"):
         if key in cache:
-            cache[key] = tree_map(lambda dst, src: src.to(dst.dtype),
-                                  cache[key], parts[key])
+            cache[key] = tree_map(
+                lambda dst, src: shd.placed_like(src.to(dst.dtype), dst),
+                cache[key], parts[key])
     logits = lyr.logits_apply(params["embed"], cfg, x[:, -1:])[:, 0]
     return logits, cache

@@ -76,7 +76,7 @@ def _moe_apply(p, cfg, x):
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     # Python's round, half to even, as the reference computes C
     C = max(1, int(round(cfg.capacity_factor * S * K / E)))
-    dt, dev = x.dtype, x.device
+    dt = x.dtype
 
     probs = torch.softmax(router_logits(p, x), dim=-1)
     top_p, top_e = top_k(probs, K)  # (B, S, K)
@@ -103,18 +103,39 @@ def _moe_apply(p, cfg, x):
     xe = shd.constrain(xe, "batch", "", "", "embed")
 
     # ---- expert FFN (batched over experts) -------------------------------
-    # (shd.dense: a no-op with no mesh; under one, DTensor's layouts)
-    g = shd.dense(torch.einsum("becd,edf->becf", xe, p["wg"].to(dt)))
-    u = shd.dense(torch.einsum("becd,edf->becf", xe, p["wu"].to(dt)))
+    # (shd.dense: a no-op with no mesh; under one, DTensor's layouts). Where
+    # the capacity rows outnumber a weight's input width, its FSDP shard
+    # over 'data' is gathered and each rank keeps its rows: left to pick,
+    # DTensor split the experts over 'model' and gathered every row of the
+    # batch to each rank
+    rows = B * C
+    wg, wu = (shd.gathered(p[k], rows, D, "", "", "mlp").to(dt)
+              for k in ("wg", "wu"))
+    g = shd.dense(torch.einsum("becd,edf->becf", xe, wg))
+    u = shd.dense(torch.einsum("becd,edf->becf", xe, wu))
     h = F.silu(g) * u
     h = shd.dense(shd.constrain(h, "batch", "", "", "mlp"))
-    y = torch.einsum("becf,efd->becd", h, p["wd"].to(dt))
+    wd = shd.gathered(p["wd"], rows, cfg.d_ff, "", "mlp", "").to(dt)
+    y = torch.einsum("becf,efd->becd", h, wd)
 
-    # ---- combine ----------------------------------------------------------
+    # ---- combine: local to each batch row too (DTensor's indexed read of
+    # a batch-sharded tensor gathers the whole batch) ---------------------
+    out, = shd.local_call(lambda ys, ss, ws: (_combine(ys, ss, ws, K),),
+                          (y, slot, fw * keep.to(dt)),
+                          (("batch", "", "", "embed"), ("batch", ""),
+                           ("batch", "")), (("batch", "", "embed"),))
+    return shd.constrain(out, "batch", "seq", "embed"), aux
+
+
+def _combine(y, slot, w, K: int):
+    """Each assignment's expert output from ``y`` (B, E, C, D) at its
+    ``slot`` (B, S·K; the overflow slot reads a zero row), weighted by
+    ``w`` (B, S·K) and summed over the ``K`` assignments of a token:
+    (B, S, D)."""
+    B, E, C, D = y.shape
     yflat = torch.cat([y.reshape(B, E * C, D), y.new_zeros((B, 1, D))],
                       dim=1)
-    rows = torch.arange(B, device=dev)[:, None]
+    rows = torch.arange(B, device=y.device)[:, None]
     gathered = yflat[rows, slot]  # (B, S*K, D)
-    gathered = gathered * (fw * keep.to(dt))[..., None]
-    out = gathered.reshape(B, S, K, D).sum(dim=2)
-    return shd.constrain(out, "batch", "seq", "embed"), aux
+    gathered = gathered * w[..., None]
+    return gathered.reshape(B, -1, K, D).sum(dim=2)

@@ -24,7 +24,9 @@ propagates shapes):
   reference's ring accounting (:func:`collective_traffic`), the group
   size read from its process group;
 * a per-op table (op name → calls, FLOPs, bytes, float32-rate FLOPs)
-  and the peak of the live storage the step allocates (``temp_bytes``);
+  and the peak of the live storage the step allocates (``temp_bytes``),
+  with the largest storages live at that peak (``peak_tensors``: the op
+  that made each, its shape, dtype and bytes);
 * **strided_ops** — the DTensor ops that took an input laid out with a
   ``_StridedShard``, whose redistributions DTensor plans by its graph
   search (``sharding``'s module doc): 0 on the port's steps.
@@ -40,11 +42,13 @@ walk's loop logic has no counterpart here.
 from __future__ import annotations
 
 import contextlib
+import heapq
 import weakref
 from collections import defaultdict
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.placement_types import _StridedShard
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -130,6 +134,27 @@ def _group_size(func, args, kwargs) -> int:
     return sizes[0] if sizes else 2
 
 
+# ops whose result is their input: on real tensors a pending collective
+# result wrapping it, on meta tensors (the dry run) a new empty one
+_ALIASES = {"_wrap_tensor_autograd"}
+
+
+def _alias(src: torch.Tensor, out: torch.Tensor) -> None:
+    """Count ``out`` as ``src``'s storage: where it has one of its own (on
+    meta tensors), ``src``'s is held, and counted live, until ``out``'s
+    is freed."""
+    st, held = _held(out).untyped_storage(), _held(src).untyped_storage()
+    if id(st) != id(held):
+        weakref.finalize(st, lambda *_: None, held)
+
+
+def _held(t: torch.Tensor) -> torch.Tensor:
+    """The tensor whose storage ``t`` holds: a collective's pending
+    result (an ``AsyncCollectiveTensor``, and a view of one, which stays
+    one) holds it in ``elem``."""
+    return t.elem if isinstance(t, AsyncCollectiveTensor) else t
+
+
 class Counter(TorchDispatchMode):
     """Per-device FLOPs, bytes, collective bytes, a per-op table and the
     peak of live storage, over every aten op dispatched while it is
@@ -145,7 +170,9 @@ class Counter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self._hidden = 0
-        self._seen: set[int] = set()
+        self._seen: dict[int, tuple] = {}  # live storage -> its maker
+        self._top: list = []  # the largest of them at the peak
+        self._stale = False  # the peak has grown since _top was taken
         self.strided_ops = 0
 
     # -- recording ---------------------------------------------------------
@@ -175,24 +202,35 @@ class Counter(TorchDispatchMode):
         finally:
             self._hidden -= 1
 
-    def _track(self, args, kwargs, out) -> None:
+    def _track(self, func, args, kwargs, out) -> None:
         """Count each new storage among ``out`` as allocated until it is
         freed (an output that shares an input's storage, a view or an
-        in-place result, is not new)."""
-        ins = {id(t.untyped_storage()) for t in _tensors((args, kwargs))}
+        in-place result, is not new; :func:`_held`)."""
+        ins = {id(_held(t).untyped_storage())
+               for t in _tensors((args, kwargs))}
         for t in _tensors(out):
-            st = t.untyped_storage()
+            st = _held(t).untyped_storage()
             key = id(st)
             if key in self._seen or key in ins:
                 continue
-            self._seen.add(key)
             n = st.nbytes()
+            self._seen[key] = (n, str(func), list(t.shape), str(t.dtype))
             self.live += n
-            self.peak = max(self.peak, self.live)
+            if self.live > self.peak:
+                self.peak, self._stale = self.live, True
             weakref.finalize(st, self._free, key, n)
 
+    def _snapshot(self) -> None:
+        """The makers of the largest live storages, taken at a new peak
+        when it ends: at the first free after it, or at the record."""
+        if self._stale:
+            # (a free the copy's allocation sets off finds it taken)
+            self._stale = False
+            self._top = heapq.nlargest(4, list(self._seen.values()))
+
     def _free(self, key: int, n: int) -> None:
-        self._seen.discard(key)
+        self._snapshot()
+        self._seen.pop(key, None)
         self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -209,11 +247,14 @@ class Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if any(isinstance(t, FakeTensor) for t in _tensors(out)):
             return out  # a fake tensor that propagation built (no inputs)
-        self._track(args, kwargs, out)
-        if self._hidden:
-            return out
         packet = func.overloadpacket
         ns, name = packet._qualified_op_name.split("::")
+        if name in _ALIASES:
+            _alias(args[0], out)
+        else:
+            self._track(func, args, kwargs, out)
+        if self._hidden:
+            return out
         kind = _COLLECTIVES.get(name) if ns in _COLLECTIVE_NS else None
         if kind is not None:
             res = sum(tensor_bytes(t) for t in _tensors(out))
@@ -249,10 +290,14 @@ class Counter(TorchDispatchMode):
         return float(sum(self.by_kind.values()))
 
     def result(self) -> dict:
+        self._snapshot()
         return {"flops": self.flops, "flops_f32": self.flops_f32,
                 "bytes": self.bytes,
                 "collective_bytes": self.collective_bytes,
                 "by_kind": dict(self.by_kind), "temp_bytes": self.peak,
+                "peak_tensors": [
+                    {"op": op, "shape": shape, "dtype": dtype, "bytes": n}
+                    for n, op, shape, dtype in self._top],
                 "strided_ops": self.strided_ops,
                 "ops": {k: list(v) for k, v in sorted(self.ops.items())}}
 

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Sequence
 
 from repro_torch.models.params import tree_map
@@ -51,6 +52,8 @@ __all__ = [
     "set_mesh",
     "current_mesh",
     "constrain",
+    "sharded",
+    "gathered",
     "seq_whole",
     "batch_axes",
     "axis_sizes",
@@ -61,8 +64,10 @@ __all__ = [
     "placed",
     "shard_box",
     "from_shard",
+    "contiguous_stride",
     "lay_out",
     "lay_out_tree",
+    "placed_like",
     "whole",
 ]
 
@@ -212,6 +217,26 @@ def constrain(x, *logical: str):
     return x.redistribute(x.device_mesh, want)
 
 
+def sharded(*ts) -> bool:
+    """Whether a mesh is set and any of ``ts`` is a DTensor on it: a step
+    of plain tensors (no mesh, or a mesh of one device) takes the plain
+    path and counts exactly the ops it counts with no mesh."""
+    return current_mesh() is not None and any(
+        hasattr(t, "to_local") for t in ts)
+
+
+def gathered(w, rows: int, width: int, *logical):
+    """The weight ``w`` laid out by ``logical`` (its FSDP shard over
+    'data' gathered) where the ``rows`` activation rows that meet it
+    outnumber its input ``width``; else ``w`` itself. Left to choose,
+    DTensor may gather the rows over the batch instead, and their product
+    with the weight, then the larger of the two, is whole over the batch
+    on every rank (the loss head's logits of a training chunk, the MoE's
+    expert activations); a decode step's few rows are cheaper to gather
+    than the weight."""
+    return constrain(w, *logical) if rows > width else w
+
+
 def seq_whole(x, feature: str = "embed"):
     """``x`` (batch, seq, ``feature``) in the policy's layout for
     ``("batch", "", feature)``: the sequence whole. An einsum that merges
@@ -221,26 +246,36 @@ def seq_whole(x, feature: str = "embed"):
     return constrain(x, "batch", "", feature)
 
 
-def local_call(fn, args, in_axes, out_axes):
+def local_call(fn, args, in_axes, out_axes, partial=(), reduced=()):
     """``fn(*args)`` where its math is local to a shard (the wkv per batch
     row and head): under a mesh, with a DTensor among ``args``, each
     argument is redistributed to the placements of its logical axes
     (``in_axes``, one tuple per argument; a plain tensor is taken as
     replicated) and ``fn`` runs on the local shards by ``local_map``; its
     outputs are DTensors placed by ``out_axes``, each logical name on the
-    mesh axes it took in the inputs. An argument replicated over a mesh
-    axis that another argument shards feeds a different shard of the work
-    on each rank there: its gradient is a partial sum over that axis.
-    Otherwise ``fn(*args)``."""
+    mesh axes it took in the inputs, and partial sums over the mesh axes
+    that the logical names in ``partial`` took (a lookup in a vocab
+    slice). An argument replicated over a mesh axis that another argument
+    shards feeds a different shard of the work on each rank there: its
+    gradient is a partial sum over that axis. Otherwise ``fn(*args)``.
+
+    With ``reduced`` (logical names), ``fn`` also takes ``reduce=``, a
+    function ``reduce(t, op)`` of a local tensor that reduces it by ``op``
+    ("sum", "max") over the mesh axes those names took (:func:`_reducer`;
+    ``t`` itself where they took none, and with no mesh)."""
+    def bound(dmesh=None, axes=()):
+        return functools.partial(fn, reduce=_reducer(dmesh, axes)) \
+            if reduced else fn
+
     mesh = current_mesh()
     if mesh is None:
-        return fn(*args)
+        return bound()(*args)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     dts = [a for a in args if isinstance(a, DTensor)]
     if not dts:
-        return fn(*args)
+        return bound()(*args)
     dmesh = dts[0].device_mesh
     owner: dict[str, str] = {}  # mesh axis -> logical name that took it
     ins, in_pl = [], []
@@ -258,14 +293,31 @@ def local_call(fn, args, in_axes, out_axes):
         in_pl.append(want)
     names = _axis_names(dmesh)
     out_pl = tuple(
-        tuple(Shard(axes.index(owner[a])) if owner.get(a) in axes
+        tuple(Partial() if owner.get(a) in partial
+              else Shard(axes.index(owner[a])) if owner.get(a) in axes
               else Replicate() for a in names)
         for axes in out_axes)
     grad_pl = tuple(
         tuple(Partial() if a in owner and not q.is_shard() else q
               for a, q in zip(names, pl)) for pl in in_pl)
-    return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl),
+    run = bound(dmesh, [a for a in names if owner.get(a) in reduced])
+    return local_map(run, out_placements=out_pl,
+                     in_placements=tuple(in_pl),
                      in_grad_placements=grad_pl, device_mesh=dmesh)(*ins)
+
+
+def _reducer(dmesh, axes):
+    """``reduce(t, op)``: ``t`` reduced by ``op`` over each of the mesh
+    axes ``axes`` in turn (a functional collective each, which the dry
+    run's counter counts); ``t`` itself for none."""
+    def reduce(t, op: str):
+        from torch.distributed import _functional_collectives as funcol
+
+        for axis in axes:
+            t = funcol.all_reduce(t, op, dmesh.get_group(axis))
+            t = t.wait() if hasattr(t, "wait") else t
+        return t
+    return reduce
 
 
 def dense(x):
@@ -366,9 +418,21 @@ def from_shard(local, shape, pl, mesh):
     import torch
     from torch.distributed.tensor import DTensor
 
-    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(local, mesh, tuple(pl), run_check=False,
-                              shape=torch.Size(shape), stride=stride)
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``, worked out (a
+    ``torch.empty(shape, device="meta")`` to read them from is an
+    allocation of the whole tensor that the dry run's counter, which sees
+    the step's meta tensors, would count as the step's own)."""
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(n)
+        n *= max(size, 1)
+    return tuple(reversed(stride))
 
 
 def placed(d, make, device):
@@ -404,6 +468,17 @@ def lay_out_tree(tree, placements_tree, mesh):
     structure (a state and its ``state_shardings``)."""
     return tree_map(lambda t, pl: lay_out(t, pl, mesh), tree,
                     placements_tree)
+
+
+def placed_like(t, like):
+    """``t`` in the placements of the DTensor ``like``, redistributed
+    where they differ (a state a step computes, written into its cache's
+    layout); ``t`` itself where either is no DTensor."""
+    if not (hasattr(t, "to_local") and hasattr(like, "to_local")):
+        return t
+    pl = tuple(like.placements)
+    return t if tuple(t.placements) == pl else t.redistribute(
+        like.device_mesh, pl)
 
 
 def whole(t):

@@ -114,10 +114,7 @@ def _unflatten(paths, leaves) -> dict:
 def _accumulate(a, b) -> None:
     """``a += b`` in float32, in place; a DTensor gradient that comes back
     in other placements than its buffer is first redistributed to them."""
-    b = b.float()
-    if hasattr(a, "to_local") and tuple(b.placements) != tuple(a.placements):
-        b = b.redistribute(a.device_mesh, a.placements)
-    a.add_(b)
+    a.add_(shd.placed_like(b.float(), a))
 
 
 def make_train_step(cfg, tc: TrainConfig):

@@ -20,7 +20,12 @@ to OUT.json. The jobs:
 - ``dryrun``: ``launch.dryrun.run_cell`` of a local cell on the ranks laid
   out as ``mesh_shape``, under ``CommDebugMode``: the cell's record (its
   collective bytes, per-device FLOPs and bytes, and op table's collective
-  rows) and the collectives ``CommDebugMode`` counted;
+  rows), the collectives ``CommDebugMode`` counted, and every rank's
+  counted peak of the storage the step held (``temp_bytes_by_rank``),
+  the least over ``reps`` runs of the cell (default 1): gloo's worker
+  thread lets go of a collective's buffers a moment after the wait
+  returns, so one run's peak can exceed the program's own by such a
+  buffer (8192 or 24576 B in 5 of 112 rank-runs of a reduced prefill);
 - ``logits``: a prefill cell's step on the ranks laid out as
   ``mesh_shape`` (its arguments drawn whole from seed 0 on every rank and
   laid out by the policy, as ``run_cell`` lays them out), its logits
@@ -30,7 +35,8 @@ to OUT.json. The jobs:
 - ``grads``: ``train.step.loss_and_grads`` of a reduced config on a batch
   of ``batch`` (rows, seq) drawn from seed 1, on the ranks laid out as
   ``mesh_shape`` and on this rank alone: each leaf's largest absolute
-  difference over the one process's largest magnitude.
+  difference over the one process's largest magnitude; with ``"fault":
+  "vocab_unreduced"`` under a planted fault (:func:`vocab_unreduced`).
 
 Run as a script: each rank is a process started with the ``spawn``
 method, on one intra-op thread, with the port's lockdep and racedep armed
@@ -127,11 +133,27 @@ def misplaced():
                                   run_check=False, shape=o.shape,
                                   stride=o.stride())
 
-    shd.local_call = lambda *a: tuple(swapped(o) for o in call(*a))
+    shd.local_call = lambda *a, **k: tuple(swapped(o)
+                                           for o in call(*a, **k))
     try:
         yield
     finally:
         shd.local_call = call
+
+
+@contextmanager
+def vocab_unreduced():
+    """A planted fault for the gradient bound's power on the loss head:
+    the vocab-parallel cross-entropy reduces nothing over the ranks that
+    split the vocab, so each rank's loss is that of its vocab slice."""
+    from repro_torch import sharding as shd
+
+    reducer = shd._reducer
+    shd._reducer = lambda dmesh, axes: reducer(dmesh, ())
+    try:
+        yield
+    finally:
+        shd._reducer = reducer
 
 
 def saved_arrays(ckpt: str, step: int) -> dict:
@@ -220,16 +242,25 @@ def _dryrun(job, mesh) -> dict:
 
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import dryrun
+    def run():
+        return dryrun.run_cell(get_config(job["arch"]),
+                               ShapeConfig(*job["shape"]), "local",
+                               device="cpu", mesh_shape=job["mesh_shape"])
+
     comm = CommDebugMode()
     with comm:
-        rec = dryrun.run_cell(get_config(job["arch"]),
-                              ShapeConfig(*job["shape"]), "local",
-                              device="cpu", mesh_shape=job["mesh_shape"])
+        rec = run()
     counts = {}
     for op, n in comm.get_comm_counts().items():
         name = str(op).split(".")[-1]
         counts[name] = counts.get(name, 0) + n
+    peak = rec.get("memory", {}).get("temp_bytes")
+    for _ in range(job.get("reps", 1) - 1):
+        peak = min(peak, run()["memory"]["temp_bytes"])
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
     return dict(ok=rec["ok"], error=rec.get("error"), chips=rec.get("chips"),
+                temp_bytes_by_rank=peaks,
                 collectives=rec.get("collectives"),
                 flops_per_device=rec.get("flops_per_device"),
                 bytes_per_device=rec.get("bytes_per_device"),
@@ -287,7 +318,9 @@ def _grads(job, mesh) -> dict:
         M.model_defs(cfg)), grid)
     lb = {k: shd.lay_out(v, shd.named_sharding(
         defs[k].shape, defs[k].logical, grid), grid) for k, v in batch.items()}
-    with shd.set_mesh(grid), implicit_replication():
+    fault = vocab_unreduced() if job.get("fault") == "vocab_unreduced" \
+        else nullcontext()
+    with shd.set_mesh(grid), implicit_replication(), fault:
         got = loss_and_grads(laid, cfg, lb)[1]
     return {"/".join(p): float((t.full_tensor() - want[p]).abs().max()
                                / want[p].abs().max())

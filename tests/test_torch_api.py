@@ -1,7 +1,7 @@
 """Public names of ``repro``'s API that the port carries (ROADMAP F11), on
 the CPU: ``kernels.idct8x8_dequant`` and ``ref.idct8x8_dequant_ref``,
-the ``PSVReader`` re-export of ``wsi.slide`` and the engine's
-``greedy=``.
+the ``PSVReader`` re-export of ``wsi.slide``, the engine's ``greedy=``
+and ``ModelConfig.attn_free``.
 
 ``idct8x8_dequant`` is plain PyTorch on both sides of the comparison
 (``repro``'s is jnp only). Tolerance: ``max|Δ| / (max|reference| + 1)``
@@ -14,10 +14,11 @@ import pytest
 import torch
 
 from repro.kernels import idct8x8_dequant as jax_idct8x8_dequant
+from repro.configs import get_config as jax_get_config
 from repro.kernels import ref as jref
 from repro.wsi.slide import SyntheticScanner as JaxScanner
 from repro_torch import kernels
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import ref
 from repro_torch.models import model as M
 from repro_torch.serve.engine import ContinuousBatchingEngine, Request
@@ -82,3 +83,8 @@ def test_engine_takes_greedy():
         eng.run_until_drained()
         runs.append(got["out"])
     assert runs[0] == runs[1] == runs[2] and len(runs[0]) == 3
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_attn_free_matches_repro(arch):
+    assert get_config(arch).attn_free is jax_get_config(arch).attn_free
