@@ -275,7 +275,9 @@ raises (exit code ≠ 0) on any failed check:
     (a ``gemma-2b`` prefill and decode) on the 512-GPU (pod, data, model)
     mesh within ``ROOF_MULTI_TIMEOUT`` s: each ok on 512 chips,
     collectives counted by kind, no op on a ``_StridedShard`` layout,
-    ``fits_hbm``, its record printed on a line of its own. Prints each
+    ``fits_hbm``, its record printed on a line of its own; the decode's
+    collectives, FLOPs and bytes printed, its collectives at most
+    ``ROOF_MULTI_DECODE_COLL_MAX`` (twice ``repro``'s). Prints each
     cell's counts, terms, time, share, model FLOP share and peak memory;
 15. the data mesh — the split mesh is every visible card, or on a machine
     of one card that card named twice (its two shards run one after the
@@ -3611,6 +3613,12 @@ ROOF_MULTI_CELLS = (("gemma-2b", "prefill_32k", "multi"),
                     ("gemma-2b", "decode_32k", "multi"))
 ROOF_MULTI_CHIPS = 512
 ROOF_MULTI_TIMEOUT = 240
+# the multi decode's collectives (link bytes per device) may not exceed
+# twice repro's: 4804800 B is repro's figure for gemma-2b decode_32k
+# multi (XLA's partitioning, dry run on the CPU; the card's machine has no
+# JAX). The port gathered the whole float32 cache there before its decode
+# attended on each rank's sequence shard (2.1488 GB)
+ROOF_MULTI_DECODE_COLL_MAX = 2 * 4804800
 # the card's memory: a production cell's hbm_per_device must lie under it
 ROOF_HBM_BYTES = 80e9
 
@@ -3782,6 +3790,16 @@ def run_roofline(seed: int, card: str) -> dict:
                 multi["strided_ops"] or not multi["fits_hbm"]:
             raise AssertionError(f"phase 14: the multi cell: {multi}")
         _log(f"phase 14 multi {multi['shape']} cell: " + json.dumps(multi))
+        if multi["shape"].startswith("decode"):
+            coll = multi["collectives"]["total"]
+            _log(f"phase 14 multi decode: collectives {coll:.0f} B "
+                 f"(limit {ROOF_MULTI_DECODE_COLL_MAX} B), FLOPs "
+                 f"{multi['flops_per_device']:.0f}, bytes "
+                 f"{multi['bytes_per_device']:.0f} a device")
+            if not coll <= ROOF_MULTI_DECODE_COLL_MAX:
+                raise AssertionError(
+                    f"phase 14: the multi decode's collectives {coll} B "
+                    f"exceed {ROOF_MULTI_DECODE_COLL_MAX}")
     return dict(card=card, arch=ROOF_ARCH, cells=cells,
                 production=production, multi=multis,
                 phase_s=time.perf_counter() - t0)

@@ -224,18 +224,25 @@ def _head_einsum(eq: str, x, w, axes):
     DTensor makes of it; there the einsum runs on the local shards
     (``sharding.local_call``) with the weight whole, each rank's batch
     rows (and sequence, for ``wo``), as ``repro``'s partitioner
-    replicates a dim the axis does not divide. ``axes``: the logical axes
-    of ``x``, ``w`` and the product on the local shards."""
+    replicates a dim the axis does not divide. An input projection of
+    fewer rows than the weight's input width (a decode step's) keeps the
+    weight's head_dim shard instead and gathers the product, then the
+    smaller of the two. ``axes``: the logical axes of ``x``, ``w`` and
+    the product on the local shards."""
     if not shd.sharded(x, w) or shd.spec_for(w.shape, axes[1],
                                              shd.current_mesh()):
         return torch.einsum(eq, x, w)
+    few = axes is _W_IN and x.shape[0] * x.shape[1] < x.shape[-1]
     out, = shd.local_call(lambda a, b: (torch.einsum(eq, a, b),), (x, w),
-                          axes[:2], axes[2:])
-    return out
+                          *((_W_IN_HD[:2], _W_IN_HD[2:]) if few
+                            else (axes[:2], axes[2:])))
+    return shd.constrain(out, *_W_IN[2]) if few else out
 
 
 # the projections' logical axes on the local shards (:func:`_head_einsum`)
 _W_IN = (("batch", "", ""), ("", "heads", ""), ("batch", "", "heads", ""))
+_W_IN_HD = (("batch", "", ""), ("", "heads", "head_dim"),
+            ("batch", "", "heads", "head_dim"))
 _W_OUT = (("batch", "seq", "heads", ""), ("heads", "", ""),
           ("batch", "seq", ""))
 
@@ -327,6 +334,14 @@ def decode_self_attention(p, cfg, x1, k_cache, v_cache, kv_pos, pos, *,
     tensors in place, at slot ``pos % W`` under a window and ``min(pos,
     W - 1)`` without. Returns (out, k_cache, v_cache, k_scale, v_scale):
     the caches are the tensors passed in.
+
+    Under a mesh the attention runs on each rank's shard of the cache. Where
+    the policy splits the cache's sequence (``kvseq``: the KV heads do not
+    divide 'model'), each rank attends over its own slots and the ranks
+    combine the softmax (flash-decoding): the row max, the sum of
+    exponentials and the weighted values are reduced over ``kvseq``, so no
+    rank gathers the cache. Otherwise the softmax runs over the whole
+    cache, as with no mesh.
     """
     q = attn_project_q(p, cfg, x1, pos[:, None])
     k_new, v_new = attn_project_kv(p, cfg, x1, pos[:, None])
@@ -340,13 +355,9 @@ def decode_self_attention(p, cfg, x1, k_cache, v_cache, kv_pos, pos, *,
         shd.index_write(v_cache, (rows, slot), vq)
         shd.index_write(k_scale, (rows, slot), ks.to(k_scale.dtype))
         shd.index_write(v_scale, (rows, slot), vs.to(v_scale.dtype))
-        kf = k_cache.float() * k_scale[..., None]
-        vf = v_cache.float() * v_scale[..., None]
     else:
         shd.index_write(k_cache, (rows, slot), k_new[:, 0].to(k_cache.dtype))
         shd.index_write(v_cache, (rows, slot), v_new[:, 0].to(v_cache.dtype))
-        kf = k_cache.float()
-        vf = v_cache.float()
 
     _, _, H, hd = q.shape
     KV = k_cache.shape[2]
@@ -355,26 +366,48 @@ def decode_self_attention(p, cfg, x1, k_cache, v_cache, kv_pos, pos, *,
     valid = kv_pos <= pos[:, None]  # (B, W); free slots are UNWRITTEN
     if window:
         valid = valid & (pos[:, None] - kv_pos < window)
+    split = bool(shd.claimed(k_cache, _DECODE_KV, "kvseq"))
 
-    def attend(qr, kf, vf, valid):
+    def attend(qr, kc, vc, valid, *scales, reduce):
+        if scales:
+            kf = kc.float() * scales[0][..., None]
+            vf = vc.float() * scales[1][..., None]
+        else:
+            kf = kc.float()
+            vf = vc.float()
         s = torch.einsum("bkgd,bwkd->bkgw", qr, kf)
         s = s * hd**-0.5
         s = torch.where(valid[:, None, None, :], s, NEG_INF)
-        probs = torch.softmax(s, dim=-1)
-        return (torch.einsum("bkgw,bwkd->bkgd", probs, vf),)
+        if not split:
+            probs = torch.softmax(s, dim=-1)
+            return (torch.einsum("bkgw,bwkd->bkgd", probs, vf),)
+        # a shard whose slots are all masked holds NEG_INF scores only: the
+        # row max over every shard is a valid slot's, so they weigh 0
+        m = reduce(s.amax(-1, keepdim=True), "max")
+        e = torch.exp(s - m)
+        den = reduce(e.sum(-1, keepdim=True), "sum")
+        num = reduce(torch.einsum("bkgw,bwkd->bkgd", e, vf), "sum")
+        return (num / den,)
 
-    # per (batch row, KV head): on the local shards under a mesh
-    ctx, = shd.local_call(attend, (qr, kf, vf, valid), _DECODE_IN,
-                          (_DECODE_Q,))
+    seq = "kvseq" if split else ""
+    args, in_axes = (qr, k_cache, v_cache, valid), (
+        _DECODE_Q, ("batch", seq, "heads", ""), ("batch", seq, "heads", ""),
+        ("batch", seq))
+    if k_scale is not None:
+        args += (k_scale, v_scale)
+        in_axes += (("batch", seq, "heads"),) * 2
+    # per (batch row, KV head, and sequence shard where split): on the
+    # local shards under a mesh
+    ctx, = shd.local_call(attend, args, in_axes, (_DECODE_Q,),
+                          reduced=("kvseq",))
     ctx = ctx.reshape(B, 1, H, hd).to(x1.dtype)
     return attn_out(p, cfg, ctx), k_cache, v_cache, k_scale, v_scale
 
 
-# decode attention's logical axes on the local shards: whole caches, per
-# batch row and KV head
+# decode attention's logical axes: the cache's, and the query's and the
+# output's on the local shards (per batch row and KV head)
+_DECODE_KV = ("batch", "kvseq", "heads", "head_dim")
 _DECODE_Q = ("batch", "heads", "", "")
-_DECODE_IN = (_DECODE_Q, ("batch", "", "heads", ""),
-              ("batch", "", "heads", ""), ("batch", ""))
 
 
 def write_kv_pos(kv_pos, pos, *, window: int = 0):
@@ -449,12 +482,19 @@ def embed_apply(p, cfg, tokens):
     if not shd.sharded(table, tokens):
         x = _lookup(cfg, table, tokens)
     else:
+        # the table's FSDP shard of the rows stays where the tokens' batch
+        # leaves its mesh axes free (a batch of one): each rank looks up its
+        # columns of the rows, and no rank gathers its vocab slice whole
+        fsdp = any(q.is_shard(1) for q in table.placements) and not set(
+            shd.claimed(table, ("vocab", "embed"), "embed")) & set(
+            shd.claimed(tokens, ("batch", ""), "batch"))
+        emb = "embed" if fsdp else ""
         x, = shd.local_call(
             lambda t, tok, ids: (_lookup(cfg, t, tok, ids),),
             (table, tokens, torch.arange(table.shape[0],
                                          device=tokens.device)),
-            (_VOCAB, ("batch", ""), ("vocab",)), (("batch", "", ""),),
-            partial=("vocab",))
+            (("vocab", emb), ("batch", ""), ("vocab",)),
+            (("batch", "", emb),), partial=("vocab",))
     return shd.constrain(x, "batch", "seq", "embed")
 
 

@@ -198,14 +198,26 @@ def mamba2_decode(p, cfg, x1, state):
     dts = F.softplus(dt[:, 0].float() + p["dt_bias"].float())  # (B,H)
     dA = torch.exp(dts * A)  # (B,H)
     xh = cx.reshape(B, H, P).float()
-    ssm = state["ssm"] * dA[..., None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dts, xh, cB.float())
-    # the state in its own layout (heads over 'model'): DTensor may lay
-    # the head dim over an axis the batch leaves free, and the einsum
-    # below then merges it with the heads, a _StridedShard
-    ssm = shd.constrain(ssm, "batch", "tp", "", "")
-    y = torch.einsum("bhpn,bn->bhp", ssm, cC.float())
-    y = y + xh * p["D_skip"].float()[None, :, None]
+
+    def recur(ssm, dA, dts, xh, cB, cC, skip):
+        ssm = ssm * dA[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dts, xh, cB)
+        y = torch.einsum("bhpn,bn->bhp", ssm, cC)
+        return ssm, y + xh * skip[None, :, None]
+
+    # per batch row and head: on the local shards under a mesh, the state
+    # in its own layout (heads over 'model'). Left to DTensor, a batch of
+    # one leaves 'data' free, the update's heads took it, and the state
+    # was gathered whole twice a layer
+    ssm, y = shd.local_call(
+        recur, (state["ssm"], dA, dts, xh, cB.float(), cC.float(),
+                p["D_skip"].float()), _RECUR_IN, (_RECUR_IN[0], _RECUR_IN[3]))
     y = y.reshape(B, 1, cfg.d_inner)
     out = _gate_norm_out(p, cfg, y, z)
     return out, {"conv_x": ncx, "conv_B": ncB, "conv_C": ncC, "ssm": ssm}
+
+
+# the decode recurrence's logical axes on the local shards: the state, dA,
+# dt, x, B, C and the skip weights (the outputs: the state's and x's)
+_RECUR_IN = (("batch", "tp", "", ""), ("batch", "tp"), ("batch", "tp"),
+             ("batch", "tp", ""), ("batch", ""), ("batch", ""), ("tp",))

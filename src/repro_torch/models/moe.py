@@ -107,12 +107,16 @@ def _moe_apply(p, cfg, x):
     # the capacity rows outnumber a weight's input width, its FSDP shard
     # over 'data' is gathered and each rank keeps its rows: left to pick,
     # DTensor split the experts over 'model' and gathered every row of the
-    # batch to each rank
+    # batch to each rank. g and u are laid out before the activation: the
+    # contraction over a split embed hands on partial sums, which DTensor
+    # resolved inside the silu by gathering the features over 'model' and
+    # reduce-scattering them over 'data' where a batch of one leaves
+    # 'data' free
     rows = B * C
     wg, wu = (shd.gathered(p[k], rows, D, "", "", "mlp").to(dt)
               for k in ("wg", "wu"))
-    g = shd.dense(torch.einsum("becd,edf->becf", xe, wg))
-    u = shd.dense(torch.einsum("becd,edf->becf", xe, wu))
+    g, u = (shd.constrain(shd.dense(torch.einsum("becd,edf->becf", xe, w)),
+                          "batch", "", "", "mlp") for w in (wg, wu))
     h = F.silu(g) * u
     h = shd.dense(shd.constrain(h, "batch", "", "", "mlp"))
     wd = shd.gathered(p["wd"], rows, cfg.d_ff, "", "mlp", "").to(dt)

@@ -208,9 +208,12 @@ def _channel_mix(p, cfg, x, xprev):
     xx = xprev - x
     xk = x + xx * p["mu_k"].to(dt)
     xr = x + xx * p["mu_r"].to(dt)
-    kk = torch.einsum("bsd,df->bsf", xk, p["cm_k"].to(dt))
+    # laid out before the activation: a batch of one leaves 'data' to the
+    # features, the contraction hands on partial sums over it, and DTensor
+    # resolved them inside the relu by a gather and a reduce-scatter
+    kk = shd.constrain(torch.einsum("bsd,df->bsf", xk, p["cm_k"].to(dt)),
+                       "batch", "seq", "mlp")
     kk = torch.square(torch.relu(kk))
-    kk = shd.constrain(kk, "batch", "seq", "mlp")
     kv = torch.einsum("bsf,fd->bsd", kk, p["cm_v"].to(dt))
     rr = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["cm_r"].to(dt)))
     return shd.constrain(rr * kv, "batch", "seq", "embed")

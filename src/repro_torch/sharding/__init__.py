@@ -53,6 +53,7 @@ __all__ = [
     "current_mesh",
     "constrain",
     "sharded",
+    "claimed",
     "gathered",
     "seq_whole",
     "batch_axes",
@@ -223,6 +224,19 @@ def sharded(*ts) -> bool:
     path and counts exactly the ops it counts with no mesh."""
     return current_mesh() is not None and any(
         hasattr(t, "to_local") for t in ts)
+
+
+def claimed(t, logical: Sequence[str], name: str) -> tuple[str, ...]:
+    """The mesh axes that the policy gives the logical axis ``name`` of the
+    DTensor ``t``, laid out by ``logical`` (the decode cache's ``kvseq``
+    where its heads do not divide 'model'); none for a tensor that is not
+    a DTensor."""
+    if not hasattr(t, "device_mesh"):
+        return ()
+    spec = spec_for(t.shape, logical, t.device_mesh)
+    i = list(logical).index(name)
+    part = spec[i] if i < len(spec) else None
+    return (part,) if isinstance(part, str) else tuple(part or ())
 
 
 def gathered(w, rows: int, width: int, *logical):

@@ -26,12 +26,14 @@ to OUT.json. The jobs:
   thread lets go of a collective's buffers a moment after the wait
   returns, so one run's peak can exceed the program's own by such a
   buffer (8192 or 24576 B in 5 of 112 rank-runs of a reduced prefill);
-- ``logits``: a prefill cell's step on the ranks laid out as
+- ``logits``: a prefill or decode cell's step on the ranks laid out as
   ``mesh_shape`` (its arguments drawn whole from seed 0 on every rank and
-  laid out by the policy, as ``run_cell`` lays them out), its logits
-  gathered, against the same step run on this rank alone with no mesh:
-  the largest absolute difference and logit; with ``"fault":
-  "misplaced"`` under a planted fault (:func:`misplaced`);
+  laid out by the policy, as ``run_cell`` lays them out; a decode's cache
+  filled with a history first, :func:`_history`), its logits gathered,
+  against the same step run on this rank alone with no mesh: the largest
+  absolute difference and logit; ``"window"`` gives the config that
+  sliding window; with ``"fault": "misplaced"`` or ``"decode_uncombined"``
+  under that planted fault (:func:`misplaced`, :func:`decode_uncombined`);
 - ``grads``: ``train.step.loss_and_grads`` of a reduced config on a batch
   of ``batch`` (rows, seq) drawn from seed 1, on the ranks laid out as
   ``mesh_shape`` and on this rank alone: each leaf's largest absolute
@@ -43,6 +45,7 @@ method, on one intra-op thread, with the port's lockdep and racedep armed
 (:func:`armed`): a violation, in the checkpoint's rank-0 writer and
 barrier or elsewhere, fails the rank.
 """
+import dataclasses
 import json
 import sys
 from contextlib import contextmanager, nullcontext
@@ -142,10 +145,9 @@ def misplaced():
 
 
 @contextmanager
-def vocab_unreduced():
-    """A planted fault for the gradient bound's power on the loss head:
-    the vocab-parallel cross-entropy reduces nothing over the ranks that
-    split the vocab, so each rank's loss is that of its vocab slice."""
+def _reduced_over_no_rank():
+    """Every ``reduce`` that ``sharding.local_call`` hands its function
+    reduces over no mesh axis: each rank keeps its own partial result."""
     from repro_torch import sharding as shd
 
     reducer = shd._reducer
@@ -154,6 +156,58 @@ def vocab_unreduced():
         yield
     finally:
         shd._reducer = reducer
+
+
+def vocab_unreduced():
+    """A planted fault for the gradient bound's power on the loss head:
+    the vocab-parallel cross-entropy reduces nothing over the ranks that
+    split the vocab, so each rank's loss is that of its vocab slice."""
+    return _reduced_over_no_rank()
+
+
+def decode_uncombined():
+    """A planted fault for the logits bound's power on the context-parallel
+    decode: the softmax of each rank's K/V sequence shard is not combined
+    over ``kvseq`` (its max, sum of exponentials and weighted values stay
+    the rank's own), so each rank attends to its own slots only."""
+    return _reduced_over_no_rank()
+
+
+FAULTS = {"misplaced": misplaced, "vocab_unreduced": vocab_unreduced,
+          "decode_uncombined": decode_uncombined}
+
+
+def _fault(job):
+    return FAULTS[job["fault"]]() if job.get("fault") else nullcontext()
+
+
+def _history(cfg, cache, S: int, gen) -> "torch.Tensor":
+    """Fill a dense decode cache (whole tensors, in place) with a history
+    and return the step's positions (B,), drawn in [1, S): random K/V
+    (int8 and positive scales under ``+kv8``) and, in each row, slots that
+    hold earlier positions (slot ``p % W`` under a window, where a slot
+    may hold a position the window has passed, else slot ``p``) or stay
+    ``UNWRITTEN``. Row 0 decodes at position 1, so every sequence shard
+    but the first holds only free slots."""
+    from repro_torch.models.params import UNWRITTEN
+
+    B, W = cache["kv_pos"].shape
+    pos = torch.randint(1, S, (B,), generator=gen, dtype=torch.int32)
+    pos[0] = 1
+    slots = torch.arange(W, dtype=torch.int32)
+    laps = torch.randint(0, max(S // W, 1), (B, W), generator=gen,
+                         dtype=torch.int32)
+    p = slots + W * torch.minimum(laps, (pos[:, None] - 1 - slots) // W)
+    cache["kv_pos"].copy_(torch.where(slots < pos[:, None], p, UNWRITTEN))
+    for key in ("k", "v"):
+        t = cache[key]
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen)
+                if t.dtype == torch.int8 else
+                torch.randn(t.shape, generator=gen))
+        if key + "_scale" in cache:
+            sc = cache[key + "_scale"]
+            sc.copy_(0.005 + 0.01 * torch.rand(sc.shape, generator=gen))
+    return pos
 
 
 def saved_arrays(ckpt: str, step: int) -> dict:
@@ -279,17 +333,22 @@ def _logits(job, mesh) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models.params import tree_map
     cfg, shape = get_config(job["arch"]), ShapeConfig(*job["shape"])
+    if job.get("window"):
+        cfg = dataclasses.replace(cfg, sliding_window=job["window"])
     grid = make_local_mesh("cpu", *job["mesh_shape"])
     fn, groups, _ = dryrun._step(cfg, shape, M.param_count(cfg),
                                  shd.axis_sizes(grid)["model"], None)
     args = dryrun._real_args(cfg, shape, groups, torch.device("cpu"), None,
                              0)
-    want = fn(*args)[0]
-    laid = [shd.lay_out_tree(a, tree_map(
+    if shape.kind == "decode":
+        args[3] = _history(cfg, args[1], shape.seq_len,
+                           torch.Generator().manual_seed(1))
+    # a decode step writes its cache in place: each run takes its own copy
+    laid = [shd.lay_out_tree(tree_map(torch.clone, a), tree_map(
         lambda d, p=p: shd.named_sharding(d.shape, d.logical, grid, p),
         defs), grid) for a, (defs, p) in zip(args, groups)]
-    fault = misplaced() if job.get("fault") == "misplaced" else nullcontext()
-    with shd.set_mesh(grid), implicit_replication(), fault:
+    want = fn(*args)[0]
+    with shd.set_mesh(grid), implicit_replication(), _fault(job):
         got = fn(*laid)[0].full_tensor()
     return dict(shape=list(got.shape),
                 max_abs=float((got - want).abs().max()),
@@ -318,9 +377,7 @@ def _grads(job, mesh) -> dict:
         M.model_defs(cfg)), grid)
     lb = {k: shd.lay_out(v, shd.named_sharding(
         defs[k].shape, defs[k].logical, grid), grid) for k, v in batch.items()}
-    fault = vocab_unreduced() if job.get("fault") == "vocab_unreduced" \
-        else nullcontext()
-    with shd.set_mesh(grid), implicit_replication(), fault:
+    with shd.set_mesh(grid), implicit_replication(), _fault(job):
         got = loss_and_grads(laid, cfg, lb)[1]
     return {"/".join(p): float((t.full_tensor() - want[p]).abs().max()
                                / want[p].abs().max())

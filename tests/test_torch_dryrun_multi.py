@@ -14,18 +14,32 @@ held to a real 8-rank ``gloo`` group laid out the same way.
   process); in one run on a CPU the cells took 12.6, 18.5, 6.2, 0.6
   and 3.5 s, in this order (DTensor caches the propagation of an op it
   has seen), the whole file 62 s alone and 136 s among the other tests'
-  workers.
-- The reduced prefill and decode run for real on 8 ``gloo`` ranks laid
-  out (2, 2, 2) (``tests/_torch_train_mesh.py``'s ``dryrun`` job): they
-  issue exactly the collectives, by kind and count (``CommDebugMode``),
-  and the per-device FLOPs and bytes that the fake mesh counts.
+  workers (74 s alone once the MQA decodes below were added).
+- The context-parallel decode (``layers.decode_self_attention``): a
+  reduced ``gemma-2b`` has one KV head, so its cache's sequence takes
+  'model' and each rank attends over its own shard, the softmax combined
+  over the ranks. Its decode, with ``+kv8`` and with a 16-slot sliding
+  window too, gathers less in all than one layer's K cache shard of one
+  rank (768 B against 1024–4096; the whole float32 cache gathered over
+  'model', 25216 and 12832 B, before the repair).
+- The reduced prefill and the audio and MQA decodes run for real on 8
+  ``gloo`` ranks laid out (2, 2, 2) (``tests/_torch_train_mesh.py``'s
+  ``dryrun`` job): they issue exactly the collectives, by kind and count
+  (``CommDebugMode``), and the per-device FLOPs and bytes that the fake
+  mesh counts.
 - The same 8 ranks' prefill logits (the last position's, (8, 256)) lie
   within ``LOGIT_BOUND`` of the one process's run on the same draw
   (measured 3.1e-7, the largest logit 0.64): the mesh moves only
   reduction orders. A planted fault, every ``local_call`` output declared
   with its 'data' and 'model' placements swapped
   (``_torch_train_mesh.misplaced``), moves them by 0.63, beyond the
-  bound.
+  bound. The three MQA decodes, each a step against a cache with a
+  history (``_torch_train_mesh._history``: random K/V, some slots free or
+  past the window, one row whose every shard but the first is free), lie
+  within the same bound (measured 5.4e-7, 3.0e-7 with ``+kv8`` and 3.1e-7
+  with the window; the largest logits 0.66, 0.50, 0.56); with each
+  rank's softmax left uncombined over the sequence
+  (``_torch_train_mesh.decode_uncombined``) the decode reads 0.57 off.
 - A reduced rwkv6's gradients on the same 8 ranks lie within ``GRAD_REL``
   of the one process's, leaf by leaf over its largest magnitude
   (measured 7.8e-3 at most: the bf16 parameters' rounding). The wkv's
@@ -54,8 +68,20 @@ CELLS = {
     "vlm-decode": ("llama-3.2-vision-11b-smoke", ("d", 64, 8, "decode"),
                    None),
     "rwkv6-prefill": ("rwkv6-3b-smoke", ("p", 64, 8, "prefill"), None),
+    "mqa-decode": ("gemma-2b-smoke", ("d", 64, 8, "decode"), None),
+    "mqa-decode-kv8": ("gemma-2b-smoke+kv8", ("d", 64, 8, "decode"), None),
+    "mqa-decode-window": ("gemma-2b-smoke", ("d", 64, 8, "decode"), None),
 }
-REAL = ("dense-prefill", "audio-decode")
+# case -> the sliding window its config is given
+WINDOW = {"mqa-decode-window": 16}
+# the context-parallel decodes: one KV head, so the cache's sequence
+# ('kvseq') takes 'model'
+MQA = ("mqa-decode", "mqa-decode-kv8", "mqa-decode-window")
+REAL = ("dense-prefill", "audio-decode", "mqa-decode")
+# logits jobs: (case, planted fault)
+LOGITS = (("dense-prefill", None), ("dense-prefill", "misplaced"),
+          ("mqa-decode", None), ("mqa-decode-kv8", None),
+          ("mqa-decode-window", None), ("mqa-decode", "decode_uncombined"))
 LOGIT_BOUND = 1e-5
 GRAD_REL = 0.05
 # the functional collectives' op-table rows by the names CommDebugMode
@@ -76,26 +102,32 @@ def runs(tmp_path_factory):
     ``gloo`` group), started together."""
     tmp = tmp_path_factory.mktemp("dryrun_multi")
     fake = subprocess.Popen([sys.executable, "-c", textwrap.dedent("""
-        import json, sys, time
+        import dataclasses, json, sys, time
         sys.path.insert(0, %r)
         from repro_torch.configs import ShapeConfig, get_config
         from repro_torch.launch import dryrun
-        out = {}
+        out, window = {}, json.loads(%r)
         for case, (arch, shape, mb) in json.loads(%r).items():
+            cfg = get_config(arch)
+            if case in window:
+                cfg = dataclasses.replace(
+                    cfg, sliding_window=window[case],
+                    name=f"{cfg.name}-w{window[case]}")
             t0 = time.perf_counter()
-            rec = dryrun.run_cell(get_config(arch), ShapeConfig(*shape),
+            rec = dryrun.run_cell(cfg, ShapeConfig(*shape),
                                   "single", mesh_shape=%r, out_dir=%r,
                                   microbatches=mb)
             rec["seconds"] = time.perf_counter() - t0
             out[case] = rec
         print("CELLS" + json.dumps(out, default=float))
-    """) % (str(SRC), json.dumps(CELLS), MESH, str(tmp))],
+    """) % (str(SRC), json.dumps(WINDOW), json.dumps(CELLS), MESH,
+            str(tmp))],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    prefill = CELLS["dense-prefill"]
     jobs = [{"kind": "dryrun", "arch": CELLS[c][0], "shape": CELLS[c][1],
              "mesh_shape": MESH} for c in REAL]
-    jobs += [{"kind": "logits", "arch": prefill[0], "shape": prefill[1],
-              "mesh_shape": MESH, "fault": f} for f in (None, "misplaced")]
+    jobs += [{"kind": "logits", "arch": CELLS[c][0], "shape": CELLS[c][1],
+              "window": WINDOW.get(c), "mesh_shape": MESH, "fault": f}
+             for c, f in LOGITS]
     jobs += [{"kind": "grads", "arch": "rwkv6-3b-smoke", "batch": [8, 32],
               "mesh_shape": MESH}]
     path = tmp / "jobs.json"
@@ -118,7 +150,8 @@ def runs(tmp_path_factory):
     assert ranks.returncode == 0, rank_err[-3000:]
     real = json.loads((tmp / "out.json").read_text())
     return {"fake": json.loads(line[0][5:]), "dir": tmp,
-            "real": dict(zip(REAL, real)), "logits": real[len(REAL):-1],
+            "real": dict(zip(REAL, real)),
+            "logits": dict(zip(LOGITS, real[len(REAL):-1])),
             "grads": real[-1]}
 
 
@@ -150,13 +183,46 @@ def test_eight_ranks_issue_what_the_fake_mesh_counts(runs, case):
 
 
 def test_eight_rank_logits_within_the_bound(runs):
-    sound = runs["logits"][0]
+    sound = runs["logits"][("dense-prefill", None)]
     assert sound["shape"] == [8, 256]  # the last position's
     assert sound["max_abs"] <= LOGIT_BOUND, sound
 
 
 def test_a_misplaced_local_call_output_breaks_the_bound(runs):
-    assert runs["logits"][1]["max_abs"] > LOGIT_BOUND, runs["logits"][1]
+    fault = runs["logits"][("dense-prefill", "misplaced")]
+    assert fault["max_abs"] > LOGIT_BOUND, fault
+
+
+@pytest.mark.parametrize("case", MQA)
+def test_eight_rank_context_parallel_decode_logits_within_the_bound(
+        runs, case):
+    """A decode step against a cache with a history, its sequence split
+    over 'model', on the 8 ranks against one process (module doc)."""
+    sound = runs["logits"][(case, None)]
+    assert sound["shape"] == [8, 256]
+    assert sound["max_abs"] <= LOGIT_BOUND, sound
+
+
+def test_an_uncombined_decode_softmax_breaks_the_bound(runs):
+    fault = runs["logits"][("mqa-decode", "decode_uncombined")]
+    assert fault["max_abs"] > LOGIT_BOUND, fault
+
+
+@pytest.mark.parametrize("case", MQA)
+def test_context_parallel_decode_gathers_no_cache(runs, case):
+    """Each rank attends over its own sequence shard of the cache: the
+    step's gathers, all layers together, move less than one layer's K
+    cache shard on one rank."""
+    rec, (arch, (_, S, B, _), _) = runs["fake"][case], CELLS[case]
+    assert rec["ok"], rec.get("error")
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    (pod, data, model), _ = MESH
+    shard = (B // (pod * data)) * (min(S, WINDOW.get(case, S)) // model) \
+        * cfg.num_kv_heads * cfg.head_dim * (
+            1 if cfg.kv_cache_dtype == "int8" else cfg.dtype.itemsize)
+    gathered = rec["collectives"]["by_kind"].get("all-gather", 0.0)
+    assert gathered < shard, (gathered, shard)
 
 
 def test_eight_rank_gradients_within_the_bound(runs):
